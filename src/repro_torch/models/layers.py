@@ -1,0 +1,92 @@
+"""Shared model layers: norms, RoPE, SwiGLU, embeddings.
+
+Counterpart of `repro/models/layers.py`.  Plain functions on tensors;
+`init_*` take an explicit `torch.Generator` and device and return
+float32 parameters (the generator's numbers differ from `jax.random`'s,
+so parity tests move the JAX parameters over with
+`models.transformer.params_from_numpy`).
+
+The JAX layers cast each weight to the compute dtype at every matmul
+(`w.astype(dtype)`); the port keeps matmul weights in the working dtype
+from the start, which gives the same numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+F32 = torch.float32
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    # gemma-style (1 + scale) parameterization keeps init at identity.
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def init_rms_norm(d: int, device="cuda") -> torch.Tensor:
+    return torch.zeros(d, dtype=F32, device=device)
+
+
+def rope_freqs(head_dim: int, theta: float, device="cuda") -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=F32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
+    """x: [..., S, H, D]; positions: broadcastable to [..., S]."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # [D/2]
+    angles = positions[..., None].float() * freqs           # [..., S, D/2]
+    angles = angles[..., None, :]                           # over heads
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_swiglu(gen: torch.Generator, d: int, ff: int, device="cuda") -> dict:
+    s_in, s_out = d ** -0.5, ff ** -0.5
+    return {
+        "w_gate": _normal(gen, (d, ff), device) * s_in,
+        "w_in": _normal(gen, (d, ff), device) * s_in,
+        "w_out": _normal(gen, (ff, d), device) * s_out,
+    }
+
+
+def apply_swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x in the compute dtype; the weights are in it already."""
+    g = x @ p["w_gate"]
+    h = x @ p["w_in"]
+    act = torch.nn.functional.silu(g.float()).to(x.dtype) * h
+    return act @ p["w_out"]
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d: int, device="cuda"):
+    return _normal(gen, (vocab, d), device) * (d ** -0.5)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor, dtype=torch.bfloat16,
+          scale: bool = False) -> torch.Tensor:
+    x = table[tokens].to(dtype)
+    if scale:
+        x = x * torch.tensor(table.shape[1] ** 0.5, dtype=dtype)
+    return x
+
+
+def logits(x: torch.Tensor, table: torch.Tensor,
+           softcap: Optional[float] = None) -> torch.Tensor:
+    """LM head (tied or untied table [V, d]); returns fp32 logits."""
+    out = x.float() @ table.float().T
+    if softcap:
+        out = softcap * torch.tanh(out / softcap)
+    return out
+
+
+def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=F32, device=device)

@@ -1,0 +1,617 @@
+"""Device-resident continuous-batching engine: one decode step with no
+host synchronisation.
+
+Counterpart of `repro/serve/jit_engine.py` in its default allocator
+configuration (Unpacked layout, no fastpath, no magazines, event ring
+off).  Each `engine_step` does, on the device and without a host sync:
+
+  1. boundary alloc: one page for every lane whose next token starts a
+     page (`core.nbbs.nb_pool_alloc_pages`, one launch of the pooled
+     NBBS kernel on the card);
+  2. paged decode of every writable lane (`serve.paged_decode`, one
+     launch of the paged-attention kernel per layer on the card), then
+     greedy sampling;
+  3. retirement and one merged burst free of every retired lane's pages
+     (`core.nbbs.nb_pool_free_pages`, one more pooled launch);
+  4. the schema's per-step metrics (`obs.schema.ENGINE_METRICS`).
+
+JAX threads a donated, immutable `EngineState` through a jitted step;
+here `EngineState` is a set of tensors that the step updates in place
+(the KV pool) or rebinds (the small per-lane registers).  PyTorch runs
+eagerly, so there is no compiled step to trace: `engine_step` and
+`engine_run` are plain functions.  The host syncs where the JAX shim
+does, at admission (free lanes, `admitted`) and at drain.
+
+The event ring is off in this slice; its per-step counters
+(`ring_events`, `ring_dropped`) still count what a zero-capacity ring
+counts, one event per step with a live lane, so `stat_totals()` equals
+the JAX engine's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.concurrent import I32, TreeConfig
+from repro_torch.core.nbbs import nb_pool_alloc_pages, nb_pool_free_pages
+from repro_torch.core.pool import (
+    PoolConfig,
+    home_shard,
+    pool_free_units,
+    pool_largest_run,
+)
+from repro_torch.obs import metrics as om
+from repro_torch.obs.schema import ENGINE_METRICS
+from repro_torch.serve.engine import Request
+from repro_torch.serve.paged_decode import init_pool, paged_decode_step, serve_prefill
+
+Metrics = om.Metrics
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static geometry of the engine."""
+
+    arch: ArchConfig
+    num_pages: int
+    page_tokens: int
+    max_batch: int
+    max_lane_pages: int
+    max_out: int
+    n_shards: int = 1
+    layout: str = "unpacked"
+    eos: Optional[int] = None
+    dtype: str = "float32"
+    max_rounds: int = 64
+    fastpath: bool = False
+    magazines: int = 0
+    ring_capacity: int = 0
+
+    def __post_init__(self):
+        if self.num_pages & (self.num_pages - 1):
+            raise ValueError("num_pages must be a power of two")
+        if self.ring_capacity < 0:
+            raise ValueError("ring_capacity must be >= 0")
+        if self.n_shards < 1 or (self.n_shards & (self.n_shards - 1)):
+            raise ValueError("n_shards must be a power of two >= 1")
+        if self.num_pages % self.n_shards:
+            raise ValueError("num_pages must divide evenly across shards")
+        if self.layout not in ("unpacked", "bunch-packed"):
+            raise ValueError(f"unknown tree layout {self.layout!r}")
+        if self.magazines < 0:
+            raise ValueError("magazines must be >= 0")
+        if self.dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
+        later = {
+            "layout='bunch-packed'": (
+                self.layout == "bunch-packed", "the BunchPacked layout slice"),
+            "fastpath=True": (self.fastpath, "the fastpath and magazines slice"),
+            "magazines > 0": (self.magazines > 0, "the fastpath and magazines slice"),
+            "ring_capacity > 0": (
+                self.ring_capacity > 0, "the event ring and snapshots slice"),
+        }
+        for what, (asked, slice_) in later.items():
+            if asked:
+                raise NotImplementedError(
+                    f"{what} is not ported yet; it comes with {slice_}"
+                )
+
+    @property
+    def pages_per_shard(self) -> int:
+        return self.num_pages // self.n_shards
+
+    @property
+    def tdtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    def pool_config(self) -> PoolConfig:
+        depth = (self.pages_per_shard - 1).bit_length()
+        return PoolConfig(TreeConfig(depth=depth, max_level=0), self.n_shards)
+
+    def lane_capacity_tokens(self) -> int:
+        return self.max_lane_pages * self.page_tokens
+
+
+@dataclasses.dataclass
+class EngineState:
+    """Device-resident engine state (updated in place by `engine_step`)."""
+
+    trees: torch.Tensor       # int32[S, n_words] pool tree state
+    kv_k: torch.Tensor        # [L, P+1, page, Hkv, D] page pool + sink page
+    kv_v: torch.Tensor
+    page_shard: torch.Tensor  # int32[B, MP] page handle shard, -1 = none
+    page_off: torch.Tensor    # int32[B, MP] page handle unit offset
+    seq_id: torch.Tensor      # int32[B]     -1 = empty lane
+    ctx: torch.Tensor         # int32[B]     tokens in the KV cache
+    n_pages: torch.Tensor     # int32[B]     pages mapped in the lane table
+    last_tok: torch.Tensor    # int32[B]     next decode input token
+    out_toks: torch.Tensor    # int32[B, MO] generated tokens
+    n_out: torch.Tensor       # int32[B]     generated so far
+    max_new: torch.Tensor     # int32[B]     per-lane output budget
+    active: torch.Tensor      # bool[B]      decoding this step?
+    overflowed: torch.Tensor  # bool[B]      retired by in-step alloc failure
+    done_step: torch.Tensor   # int32[B]     retirement step, -1 live
+    step_no: torch.Tensor     # int32 scalar global step counter
+    logits: Optional[torch.Tensor] = None  # float32[B, V] of the last step
+
+
+def _zero_metrics(ecfg: EngineConfig, device) -> Metrics:
+    return om.zeros(
+        ENGINE_METRICS, vector_lens={"free_pages_shard": ecfg.n_shards},
+        device=device,
+    )
+
+
+def init_engine_state(ecfg: EngineConfig, device="cuda") -> EngineState:
+    arch = ecfg.arch
+    B, MP, MO = ecfg.max_batch, ecfg.max_lane_pages, ecfg.max_out
+    pool = init_pool(arch, ecfg.num_pages, ecfg.page_tokens, ecfg.tdtype, device)
+
+    def full(shape, value, dtype=I32):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    return EngineState(
+        trees=ecfg.pool_config().empty_trees(device),
+        kv_k=pool["k"],
+        kv_v=pool["v"],
+        page_shard=full((B, MP), -1),
+        page_off=full((B, MP), -1),
+        seq_id=full((B,), -1),
+        ctx=full((B,), 0),
+        n_pages=full((B,), 0),
+        last_tok=full((B,), 0),
+        out_toks=full((B, MO), 0),
+        n_out=full((B,), 0),
+        max_new=full((B,), 0),
+        active=full((B,), False, torch.bool),
+        overflowed=full((B,), False, torch.bool),
+        done_step=full((B,), -1),
+        step_no=full((), 0),
+    )
+
+
+def global_tables(ecfg: EngineConfig, page_shard, page_off) -> torch.Tensor:
+    """Global page ids (shard base folded in), -1 padded."""
+    return torch.where(
+        page_shard >= 0, page_shard * ecfg.pages_per_shard + page_off, -1
+    ).to(I32)
+
+
+# ---------------------------------------------------------------------------
+# The step
+# ---------------------------------------------------------------------------
+
+
+def engine_step(ecfg: EngineConfig, params: dict, state: EngineState) -> Metrics:
+    """One decode iteration (alloc + decode + free) over every lane.
+    Updates `state` and returns this step's metrics; no host sync."""
+    pcfg = ecfg.pool_config()
+    B, MP, MO = ecfg.max_batch, ecfg.max_lane_pages, ecfg.max_out
+    pt = ecfg.page_tokens
+    dev = state.ctx.device
+    bidx = torch.arange(B, device=dev)
+
+    # -- 1. page allocation for lanes crossing a page boundary --------
+    boundary = state.active & (state.ctx == state.n_pages * pt)
+    need = boundary & (state.n_pages < MP)  # lane table full = overflow
+    trees, a_shard, a_off, ok, astats = nb_pool_alloc_pages(
+        pcfg, state.trees, need, state.seq_id, ecfg.max_rounds
+    )
+    pos = state.n_pages.clamp(0, MP - 1).long()
+    state.page_shard[bidx, pos] = torch.where(ok, a_shard, state.page_shard[bidx, pos])
+    state.page_off[bidx, pos] = torch.where(ok, a_off, state.page_off[bidx, pos])
+    n_pages = state.n_pages + ok.to(I32)
+    overflow_now = boundary & ~ok
+
+    # -- 2. one paged decode for every writable lane ------------------
+    writable = state.active & ~overflow_now
+    tables = global_tables(ecfg, state.page_shard, state.page_off)
+    logits = paged_decode_step(
+        ecfg.arch, params, {"k": state.kv_k, "v": state.kv_v}, tables,
+        state.ctx, state.last_tok, page_tokens=pt, dtype=ecfg.tdtype,
+        active=writable,
+    )
+    state.logits = logits
+    nxt = logits.argmax(dim=-1).to(I32)
+    wrote = writable
+    ctx = state.ctx + wrote.to(I32)
+    out_pos = state.n_out.clamp(0, MO - 1).long()
+    state.out_toks[bidx, out_pos] = torch.where(
+        wrote, nxt, state.out_toks[bidx, out_pos]
+    )
+    n_out = state.n_out + wrote.to(I32)
+    last_tok = torch.where(wrote, nxt, state.last_tok)
+
+    # -- 3. retirement + burst free of every retired lane's pages -----
+    finished = wrote & (n_out >= state.max_new)
+    if ecfg.eos is not None:
+        finished = finished | (wrote & (nxt == ecfg.eos))
+    retire = finished | overflow_now
+    f_active = (retire[:, None] & (state.page_shard >= 0)).reshape(-1)
+    trees, _, fstats = nb_pool_free_pages(
+        pcfg, trees, state.page_shard.reshape(-1), state.page_off.reshape(-1),
+        f_active,
+    )
+    retired = retire[:, None]
+    state.page_shard = torch.where(retired, -1, state.page_shard).to(I32)
+    state.page_off = torch.where(retired, -1, state.page_off).to(I32)
+    was_active = state.active
+    state.trees = trees
+    state.n_pages = torch.where(retire, 0, n_pages).to(I32)
+    state.active = state.active & ~retire
+    state.overflowed = state.overflowed | overflow_now
+    state.done_step = torch.where(
+        retire & (state.done_step < 0), state.step_no, state.done_step
+    ).to(I32)
+    state.ctx, state.n_out, state.last_tok = ctx, n_out, last_tok
+
+    # -- 4. telemetry --------------------------------------------------
+    fp_shard = pool_free_units(pcfg, trees)
+    m = _zero_metrics(ecfg, dev)
+    m["alloc_pages"] = ok.sum(dtype=I32)
+    m["freed_pages"] = fstats["freed"]
+    m["overflow_lanes"] = overflow_now.sum(dtype=I32)
+    m["probe_overflows"] = astats["overflows"]
+    m["retired"] = retire.sum(dtype=I32)
+    m["active_lanes"] = state.active.sum(dtype=I32)
+    m["alloc_rounds"] = astats["rounds"]
+    m["merged_writes"] = astats["merged_writes"]
+    m["logical_rmws"] = astats["logical_rmws"]
+    m["free_merged_writes"] = fstats["free_merged_writes"]
+    m["free_logical_rmws"] = fstats["free_logical_rmws"]
+    m["free_pages"] = fp_shard.sum(dtype=I32)
+    m["free_pages_shard"] = fp_shard
+    m["largest_run"] = pool_largest_run(pcfg, trees)
+    m["fastpath_hits"] = astats["fastpath_hits"]
+    m["fastpath_spills"] = astats["fastpath_spills"]
+    # a zero-capacity ring counts one (dropped) event per live step
+    live = was_active.any().to(I32)
+    m["ring_events"] = live
+    m["ring_dropped"] = live
+    m = om.observe(m, "alloc_rounds_hist", astats["rounds"])
+    home = home_shard(pcfg, state.seq_id)
+    dist = (a_shard - home) % pcfg.n_shards
+    m = om.observe_many(m, "probe_distance_hist", dist, ok)
+    state.step_no += 1
+    return m
+
+
+def engine_run(ecfg: EngineConfig, params: dict, state: EngineState,
+               num_steps: int) -> Metrics:
+    """`num_steps` decode iterations; returns their accumulated metrics
+    (counters and histograms summed, gauges from the last step)."""
+    acc = _zero_metrics(ecfg, state.ctx.device)
+    for _ in range(num_steps):
+        acc = om.merge(acc, engine_step(ecfg, params, state))
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Admission-boundary helpers (the host calls these between decode bursts)
+# ---------------------------------------------------------------------------
+
+
+def admit_pages(ecfg: EngineConfig, trees, seq_id: int, need: int):
+    """All-or-nothing claim of `need` prompt pages for one sequence:
+    every page is a leaf-unit lane homed by the sequence id; on partial
+    failure the successes are rolled back by a second (free) pass, so a
+    failed admission leaves the pool bit-identical.
+
+    Returns (trees, shards[MP], offs[MP], admitted, probe_overflows);
+    `overflows` comes from the alloc pass alone."""
+    pcfg = ecfg.pool_config()
+    MP = ecfg.max_lane_pages
+    dev = trees.device
+    active = torch.arange(MP, device=dev) < need
+    lane_ids = torch.full((MP,), seq_id, dtype=I32, device=dev)
+    trees1, shard, off, ok, stats = nb_pool_alloc_pages(
+        pcfg, trees, active, lane_ids, ecfg.max_rounds
+    )
+    admitted = ok.sum() == need
+    trees_rb, _, _ = nb_pool_free_pages(pcfg, trees1, shard, off, ok & ~admitted)
+    trees_out = torch.where(admitted, trees1, trees_rb)
+    keep = admitted & ok
+    return (
+        trees_out,
+        torch.where(keep, shard, -1).to(I32),
+        torch.where(keep, off, -1).to(I32),
+        admitted,
+        stats["overflows"],
+    )
+
+
+def prefill_insert(
+    ecfg: EngineConfig,
+    state: EngineState,
+    lane: int,
+    seq_id: int,
+    shards: torch.Tensor,   # int32[MP] from admit_pages
+    offs: torch.Tensor,     # int32[MP]
+    n_pages: int,
+    kv_len: int,            # prompt tokens to copy (= S-1)
+    cache_k: torch.Tensor,  # [L, Spad, Hkv, D] prefill KV (bucketed)
+    cache_v: torch.Tensor,
+    last_tok: int,
+    max_new: int,
+) -> None:
+    """Insert an admitted sequence into an empty lane: write the prefill
+    KV of positions 0..kv_len-1 into its pages and set the lane's
+    registers so the next step decodes position kv_len."""
+    pt, P, MP = ecfg.page_tokens, ecfg.num_pages, ecfg.max_lane_pages
+    dev = state.ctx.device
+    gpage = torch.where(shards >= 0, shards * ecfg.pages_per_shard + offs, P)
+    Spad = cache_k.shape[1]
+    t = torch.arange(Spad, device=dev)
+    pidx = gpage[(t // pt).clamp(0, MP - 1)]
+    pidx = torch.where(t < kv_len, pidx, P).long()   # P is the sink page
+    slot = t % pt
+    state.kv_k[:, pidx, slot] = cache_k.to(state.kv_k.dtype)
+    state.kv_v[:, pidx, slot] = cache_v.to(state.kv_v.dtype)
+    state.page_shard[lane] = shards
+    state.page_off[lane] = offs
+    state.seq_id[lane] = seq_id
+    state.ctx[lane] = kv_len
+    state.n_pages[lane] = n_pages
+    state.last_tok[lane] = last_tok
+    state.n_out[lane] = 0
+    state.max_new[lane] = max_new
+    state.active[lane] = True
+    state.overflowed[lane] = False
+    state.done_step[lane] = -1
+
+
+def clear_lanes(ecfg: EngineConfig, state: EngineState, mask: torch.Tensor) -> None:
+    """Reset drained lanes to empty (their pages were already freed by
+    the retirement burst inside `engine_step`)."""
+    state.seq_id = torch.where(mask, -1, state.seq_id).to(I32)
+    state.ctx = torch.where(mask, 0, state.ctx).to(I32)
+    state.n_out = torch.where(mask, 0, state.n_out).to(I32)
+    state.overflowed = state.overflowed & ~mask
+    state.done_step = torch.where(mask, -1, state.done_step).to(I32)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length() if n > 1 else 1
+
+
+# ---------------------------------------------------------------------------
+# The thin host shim
+# ---------------------------------------------------------------------------
+
+
+class JitServeEngine:
+    """Request-queue shim around `engine_step`: admission and drain on
+    the host, every per-token step on the device (`decode_steps` runs
+    whole chunks with no host sync)."""
+
+    def __init__(
+        self,
+        cfg: ArchConfig,
+        params,
+        *,
+        num_pages: int = 256,
+        page_tokens: int = 16,
+        max_batch: int = 8,
+        max_lane_pages: Optional[int] = None,
+        max_out: int = 64,
+        eos_token: Optional[int] = None,
+        dtype=torch.float32,
+        device="cuda",
+        n_shards: int = 1,
+        layout: Optional[str] = None,
+        max_rounds: int = 64,
+        fastpath: bool = False,
+        magazines: int = 0,
+        ring_capacity: int = 0,
+    ) -> None:
+        assert cfg.family in ("dense", "moe", "vlm", "audio"), (
+            "paged engine covers attention families"
+        )
+        if max_lane_pages is None:
+            max_lane_pages = min(num_pages, 128)
+        self.ecfg = EngineConfig(
+            arch=cfg,
+            num_pages=num_pages,
+            page_tokens=page_tokens,
+            max_batch=max_batch,
+            max_lane_pages=max_lane_pages,
+            max_out=max_out,
+            n_shards=n_shards,
+            layout=layout or "unpacked",
+            eos=eos_token,
+            dtype=str(dtype).replace("torch.", ""),
+            max_rounds=max_rounds,
+            fastpath=fastpath,
+            magazines=magazines,
+            ring_capacity=ring_capacity,
+        )
+        self.device = torch.device(device)
+        self.cfg = cfg
+        self.params = params
+        self.page_tokens = page_tokens
+        self.max_batch = max_batch
+        self.state = init_engine_state(self.ecfg, self.device)
+        self.waiting: List[Request] = []
+        self.running: Dict[int, Request] = {}   # seq_id -> request
+        self._lane_of: Dict[int, int] = {}
+        self.completed: Dict[int, Request] = {}
+        self.done_steps: Dict[int, int] = {}    # seq_id -> retire step
+        self.retired_order: List[int] = []      # drain-observed order
+        self.stats = {
+            "admitted": 0, "queued_full": 0, "rejected": 0,
+            "steps": 0, "overflow_retired": 0,
+            "admit_fastpath_hits": 0, "admit_fastpath_spills": 0,
+            "admit_magazine_spills": 0,
+        }
+        self.acc = _zero_metrics(self.ecfg, self.device)
+
+    # -- admission ----------------------------------------------------
+    def _pages_for(self, n_tokens: int) -> int:
+        return -(-max(n_tokens, 0) // self.page_tokens)
+
+    def _oversized(self, req: Request) -> bool:
+        """A request that can never fit the lane geometry: reject it
+        instead of blocking the queue behind it."""
+        total = len(req.prompt) + req.max_new_tokens
+        return (
+            self._pages_for(total) > self.ecfg.max_lane_pages
+            or self._pages_for(total) > self.ecfg.num_pages
+            or req.max_new_tokens > self.ecfg.max_out
+        )
+
+    def submit(self, req: Request) -> None:
+        self.waiting.append(req)
+
+    def _free_lanes(self) -> List[int]:
+        seq = self.state.seq_id.cpu().numpy()
+        return [int(i) for i in np.nonzero(seq < 0)[0]]
+
+    def _admit(self) -> None:
+        free = self._free_lanes()
+        while self.waiting and free:
+            req = self.waiting[0]
+            if self._oversized(req):
+                self.waiting.pop(0)
+                req.done = True
+                self.completed[req.req_id] = req
+                self.stats["rejected"] += 1
+                continue
+            need = self._pages_for(len(req.prompt) - 1)
+            trees, shards, offs, admitted, _ = admit_pages(
+                self.ecfg, self.state.trees, req.req_id, need
+            )
+            self.state.trees = trees
+            if not bool(admitted):
+                self.stats["queued_full"] += 1
+                break  # pool full: natural admission control
+            self.waiting.pop(0)
+            self._insert(free.pop(0), req, shards, offs, need)
+            self.stats["admitted"] += 1
+
+    def _insert(self, lane: int, req: Request, shards, offs, n_pages) -> None:
+        S = len(req.prompt)
+        arch, ecfg = self.cfg, self.ecfg
+        Spad = _next_pow2(S)
+        if S > 1:
+            toks = np.zeros((1, Spad), np.int64)
+            toks[0, :S] = req.prompt
+            _, cache = serve_prefill(
+                arch, self.params,
+                {"tokens": torch.from_numpy(toks).to(self.device)},
+                max_len=Spad, dtype=ecfg.tdtype,
+            )
+            cache_k, cache_v = cache["k"][:, 0], cache["v"][:, 0]
+        else:
+            kv_shape = (arch.n_layers, Spad, arch.n_kv_heads, arch.head_dim)
+            cache_k = torch.zeros(kv_shape, dtype=ecfg.tdtype, device=self.device)
+            cache_v = torch.zeros(kv_shape, dtype=ecfg.tdtype, device=self.device)
+        prefill_insert(
+            ecfg, self.state, lane, req.req_id, shards, offs, n_pages, S - 1,
+            cache_k, cache_v, int(req.prompt[S - 1]), req.max_new_tokens,
+        )
+        self.running[req.req_id] = req
+        self._lane_of[req.req_id] = lane
+
+    # -- the device loop ----------------------------------------------
+    def decode_steps(self, n: int) -> None:
+        """Run n decode iterations with no host sync.  Eager PyTorch has
+        no scan to dispatch, so a chunk is `engine_run`'s plain loop."""
+        self.acc = om.merge(
+            self.acc, engine_run(self.ecfg, self.params, self.state, n)
+        )
+        self.stats["steps"] += n
+
+    def _drain(self) -> List[int]:
+        """Collect retired lanes (one host sync), clear them, and return
+        the drained seq ids in retirement-step order."""
+        st = self.state
+        seq, act, n_out, out_toks, over, done = (
+            t.cpu().numpy() for t in (
+                st.seq_id, st.active, st.n_out, st.out_toks, st.overflowed,
+                st.done_step,
+            )
+        )
+        lanes = np.nonzero((seq >= 0) & ~act)[0]
+        lanes = sorted(lanes, key=lambda i: (int(done[i]), int(i)))
+        drained = []
+        for lane in lanes:
+            sid = int(seq[lane])
+            req = self.running.pop(sid)
+            self._lane_of.pop(sid)
+            req.out_tokens = [int(t) for t in out_toks[lane, : n_out[lane]]]
+            req.done = True
+            self.completed[sid] = req
+            self.done_steps[sid] = int(done[lane])
+            self.retired_order.append(sid)
+            if over[lane]:
+                self.stats["overflow_retired"] += 1
+            drained.append(sid)
+        if drained:
+            mask = np.zeros((self.ecfg.max_batch,), bool)
+            mask[list(lanes)] = True
+            clear_lanes(self.ecfg, self.state, torch.from_numpy(mask).to(self.device))
+        return drained
+
+    # -- ServeEngine-compatible surface --------------------------------
+    def step(self) -> int:
+        """Drain + admit + one decode step.  Returns the number of
+        running sequences (a host sync)."""
+        self._drain()
+        self._admit()
+        if not self.running:
+            return 0
+        self.decode_steps(1)
+        return int(self.state.active.sum())
+
+    def run_to_completion(self, max_steps: int = 10_000, chunk: int = 1) -> None:
+        steps = 0
+        while steps < max_steps:
+            self._drain()
+            self._admit()
+            if not self.running and not self.waiting:
+                return
+            if not self.running:
+                break
+            n = min(chunk, max_steps - steps)
+            self.decode_steps(n)
+            steps += n
+
+    # -- observability -------------------------------------------------
+    def stat_totals(self) -> Dict[str, object]:
+        """Sync and return all accumulated metrics: the device
+        accumulator and the host scheduler counters folded through one
+        schema-aware merge."""
+        host = om.host_counters({
+            "steps": self.stats["steps"],
+            "admitted": self.stats["admitted"],
+            "queued_full": self.stats["queued_full"],
+            "rejected": self.stats["rejected"],
+            "overflow_retired": self.stats["overflow_retired"],
+            "admit_fastpath_hits": self.stats["admit_fastpath_hits"],
+            "admit_fastpath_spills": self.stats["admit_fastpath_spills"],
+            "fastpath_hits": self.stats["admit_fastpath_hits"],
+            "fastpath_spills": self.stats["admit_fastpath_spills"],
+            "admit_magazine_spills": self.stats["admit_magazine_spills"],
+            "magazine_spills": self.stats["admit_magazine_spills"],
+        }, device=self.device)
+        acc = dict(self.acc)
+        for k in host:
+            acc.setdefault(k, torch.zeros((), dtype=I32, device=self.device))
+        base = {k: host.get(k, torch.zeros_like(v)) for k, v in acc.items()}
+        return om.to_host(om.merge(base, acc))
+
+    def device_free_pages(self) -> int:
+        return int(pool_free_units(self.ecfg.pool_config(), self.state.trees).sum())
+
+    def device_block_table(self, seq_id: int) -> np.ndarray:
+        """Global-page-id table of one running sequence (a host sync)."""
+        lane = self._lane_of[seq_id]
+        tables = global_tables(self.ecfg, self.state.page_shard, self.state.page_off)
+        return tables[lane].cpu().numpy()
