@@ -6,30 +6,46 @@ NVIDIA H100.
 
 Phases (any failure fails the run, exit code 1):
 
-  1. device: the card's name and power limit; build both CUDA kernels
-     from `src/repro_torch/csrc/` (one nvcc per source, in parallel);
+  1. device: the card's name and power limit; build the CUDA kernels
+     from `src/repro_torch/csrc/` (one nvcc per source, in parallel): the
+     NBBS source gives three launchers (kernel A `nbbs_pool_step`,
+     kernel 3 `nbbs_wavefront_step`, kernel 4 `nbbs_wavefront_alloc`)
+     over one kernel body in two layouts; ptxas registers and shared
+     memory of each;
   2. kernel B (paged decode attention) against its plain version on the
      card at the main path's shapes (B=256, 32 heads, D=80, page 4, 32
      pages per lane, lengths 0..128 with empty rows) in fp32 and bf16,
      and at D=128, group 4, softcap 50;
   3. kernel A (pooled NBBS step) against its plain version on the card:
      a seeded churn of 200 mixed alloc/free bursts (K=256, F=8192) at
-     S=1, depth 12 and S=4, depth 10, overflow included; bit-identical,
-     and so is its release half alone (`pool_free`, the engine's
-     retirement burst) with its per-handle freed flags;
-  4. the main path: `JitServeEngine` serving stablelm-3b at full width
+     S=1, depth 12 and S=4, depth 10, overflow included, in both tree
+     layouts (Unpacked and BunchPacked); bit-identical, and so is its
+     release half alone (`pool_free`, the engine's retirement burst)
+     with its per-handle freed flags;
+  4. the single-tree path: kernels 4 and 3 against `wavefront_alloc` /
+     `wavefront_step` at bench_wavefront's shapes (depth 14, K in {1,
+     16, 256}, levels over 7 octaves: the device-memory tier) and
+     bench_bunch_rmw's (depth 12, K=128, 8 octaves: the shared-memory
+     tier), kernel 3 with F=K/2 frees from the live set, both layouts,
+     bit-identical; then, with the launch counts at 0, the user's
+     single-tree path on the card: examples/quickstart.py §3-§6 through
+     `repro_torch` with the example's assertions, and the single-op API
+     (`nb_alloc`, `nb_alloc_size`, `nb_free`, `nb_free_batch`) on a
+     16K-unit tree in both layouts, held against a CPU replay;
+  5. the main path: `JitServeEngine` serving stablelm-3b at full width
      (random bf16 weights from a seed) with 4096 pages of 4 tokens, 256
      lanes, 32 pages per lane, decode chunks of 8, no EOS: 64 seeded
-     requests at S=1 and at S=4, every decode chunk under
-     torch.cuda.set_sync_debug_mode("error"); both kernels' launch
-     counts are read around this phase; then a `torch.profiler` window
-     of 8 steady decode steps at S=1 (device busy share, kernels by
-     device time);
-  5. the same trace and geometry through the port's engine on the CPU at
+     requests at S=1 and at S=4, and at S=4 with `layout="bunch-packed"`
+     (its retirement order and steps must equal the unpacked S=4 run's),
+     every decode chunk under torch.cuda.set_sync_debug_mode("error");
+     both kernels' launch counts are read around this phase; then a
+     `torch.profiler` window of 8 steady decode steps at S=1 (device busy
+     share, kernels by device time);
+  6. the same trace and geometry through the port's engine on the CPU at
      stablelm-3b's reduced config: with EOS off the schedule does not
      depend on tokens, so the retirement order and steps and every
-     `stat_totals()` counter must equal phase 4's;
-  6. full-width fp32 correctness: one request (prompt 6, 8 new tokens)
+     `stat_totals()` counter must equal phase 5's, the packed run's too;
+  7. full-width fp32 correctness: one request (prompt 6, 8 new tokens)
      against greedy decoding through the port's dense `prefill` over the
      growing sequence (no kernel on that path): logits within 1e-3 at
      each step, tokens equal wherever the top-2 gap exceeds 1e-3.
@@ -46,6 +62,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +99,33 @@ def cuda_ms(torch, fn, reps=20, warmup=3):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def queued_ms(torch, fn, reps=20, warmup=2):
+    """Device time of one call with the launch queue backed up behind a
+    sleep kernel, so the host's time in the wrappers is not counted."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def host_ms(torch, fn, reps=3):
+    """Host-clock time of one call ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 # ---------------------------------------------------------------------------
@@ -160,14 +204,15 @@ def phase_attention(torch, dev, report):
 def phase_alloc(torch, dev, report):
     import numpy as np
 
-    from repro_torch.core.concurrent import TreeConfig
+    from repro_torch.core.concurrent import BUNCH_PACKED, UNPACKED, TreeConfig
     from repro_torch.core.pool import PoolConfig, pool_free_round, pool_wavefront_step
     from repro_torch.kernels import nbbs_alloc
 
     big_ids = np.array([2**31 - 1, 2**31 - 2, 2**30 + 7, -1, 2, 3], np.int32)
     rows = []
-    for S, depth in ((1, 12), (4, 10)):
-        pcfg = PoolConfig(TreeConfig(depth=depth), S)
+    for layout, S, depth in ((UNPACKED, 1, 12), (UNPACKED, 4, 10),
+                             (BUNCH_PACKED, 1, 12), (BUNCH_PACKED, 4, 10)):
+        pcfg = PoolConfig(TreeConfig(depth=depth, layout=layout), S)
         rng = np.random.default_rng(depth)
         K, F, steps = 256, 8192, 200
         N = pcfg.n_words
@@ -206,17 +251,19 @@ def phase_alloc(torch, dev, report):
             kern_ms += ev0.elapsed_time(ev1)
             for a, b, what in zip(want[:4], got[:4], ("trees", "nodes", "shard", "ok")):
                 if not torch.equal(a, b):
-                    raise AssertionError(f"pool step S={S} step {step}: {what} differ")
+                    raise AssertionError(
+                        f"pool step {layout.name} S={S} step {step}: {what} differ")
             for k_ in want[4]:
                 if int(want[4][k_]) != int(got[4][k_]):
                     raise AssertionError(
-                        f"pool step S={S} step {step}: stat {k_} "
+                        f"pool step {layout.name} S={S} step {step}: stat {k_} "
                         f"{int(want[4][k_])} != {int(got[4][k_])}")
             # the release half alone, with its per-handle freed flags
             want_f = pool_free_round(pcfg, trees, *args[:3])
             got_f = nbbs_alloc.pool_free(pcfg, trees, *args[:3])
             if not (torch.equal(want_f[0], got_f[0]) and torch.equal(want_f[3], got_f[1])):
-                raise AssertionError(f"pool free S={S} step {step}: trees or freed differ")
+                raise AssertionError(
+                    f"pool free {layout.name} S={S} step {step}: trees or freed differ")
             trees = got[0]
             tot["overflows"] += int(got[4]["overflows"])
             tot["rounds"] += int(got[4]["rounds"])
@@ -229,13 +276,13 @@ def phase_alloc(torch, dev, report):
             new = np.stack([shard[nodes > 0], nodes[nodes > 0]], 1).astype(np.int64)
             live = np.concatenate([live, new])
         if S > 1 and tot["overflows"] == 0:
-            raise AssertionError("the S=4 churn never overflowed")
-        T = S * N
-        nbytes = 2 * T * 4 + F * 12 + K * 12 + K * 8 + 28
-        row = dict(S=S, depth=depth, steps=steps, K=K, F=F, ms=kern_ms / steps,
+            raise AssertionError(f"the {layout.name} S=4 churn never overflowed")
+        nbytes = 2 * S * pcfg.n_state_words * 4 + F * 12 + K * 12 + K * 8 + 28
+        row = dict(layout=layout.name, S=S, depth=depth, steps=steps, K=K, F=F,
+                   tier=nbbs_alloc.tier(pcfg.tree, S, K), ms=kern_ms / steps,
                    plain_ms=plain_ms / steps, bound_ms=nbytes / HBM_BPS * 1e3,
                    bound_by="bytes", max_abs_err=0, **tot)
-        log(f"[alloc] S={S} depth={depth}: {steps} steps bit-identical "
+        log(f"[alloc] {layout.name} S={S} depth={depth}: {steps} steps bit-identical "
             f"(overflows {tot['overflows']}, rounds {tot['rounds']}, won {tot['won']}, "
             f"freed {tot['freed']}); kernel {row['ms']:.4f} ms/launch, plain "
             f"{row['plain_ms']:.3f} ms/call, bound {row['bound_ms']:.6f} ms")
@@ -245,7 +292,195 @@ def phase_alloc(torch, dev, report):
 
 
 # ---------------------------------------------------------------------------
-# Phases 4-6: the engine
+# Phase 4: the single-tree path (kernels 3 and 4)
+# ---------------------------------------------------------------------------
+
+
+def _same(torch, want, got, what):
+    for a, b, part in zip(want[:3], got[:3], ("tree", "nodes", "ok")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {part} differ")
+
+
+def single_tree_rows(torch, dev, layout):
+    """Kernels 4 and 3 against their plain versions at the benchmarks'
+    shapes: one alloc burst on an empty tree, then a step that frees
+    half of it (F=K/2 handles of the live set) and allocates again."""
+    import numpy as np
+
+    from repro_torch.core import concurrent as conc
+    from repro_torch.core.concurrent import TreeConfig
+    from repro_torch.kernels import nbbs_alloc
+
+    shapes = [(14, K, 6, 3) for K in (1, 16, 256)] + [(12, 128, 7, 2)]
+    rows = []
+    for depth, K, octaves, seed in shapes:
+        cfg = TreeConfig(depth=depth, layout=layout)
+        rng = np.random.default_rng(seed)
+        levels = torch.from_numpy(
+            rng.integers(depth - octaves, depth + 1, size=K).astype(np.int32)).to(dev)
+        act = torch.ones(K, dtype=torch.bool, device=dev)
+        empty = cfg.empty_tree(dev)
+        want = conc.wavefront_alloc(cfg, empty, levels, act)
+        got = nbbs_alloc.wavefront_alloc(cfg, empty, levels, act)
+        what = f"kernel 4 {layout.name} depth {depth} K={K}"
+        _same(torch, want, got, what)
+        slots = ("rounds", "merged_writes", "logical_rmws")
+        if [int(want[3][k]) for k in slots] != got[3].tolist():
+            raise AssertionError(f"{what}: stats differ")
+        tree, nodes, ok = got[:3]
+        F = K // 2
+        fn, fa = nodes[:F].contiguous(), ok[:F].contiguous()
+        want3 = conc.wavefront_step(cfg, tree, fn, fa, levels, act)
+        got3 = nbbs_alloc.wavefront_step(cfg, tree, fn, fa, levels, act)
+        what3 = f"kernel 3 {layout.name} depth {depth} K={K} F={F}"
+        _same(torch, want3, got3, what3)
+        slots3 = slots + ("free_merged_writes", "free_logical_rmws", "freed")
+        if [int(want3[3][k]) for k in slots3] != got3[3].tolist():
+            raise AssertionError(f"{what3}: stats differ")
+        W = cfg.n_state_words
+        for name, ms, plain, stats, nbytes in (
+            ("nbbs_wavefront_alloc",
+             queued_ms(torch, lambda: nbbs_alloc.wavefront_alloc(cfg, empty, levels, act)),
+             host_ms(torch, lambda: conc.wavefront_alloc(cfg, empty, levels, act)),
+             got[3].tolist(), 8 * W + 9 * K + 12),
+            ("nbbs_wavefront_step",
+             queued_ms(torch, lambda: nbbs_alloc.wavefront_step(cfg, tree, fn, fa, levels, act)),
+             host_ms(torch, lambda: conc.wavefront_step(cfg, tree, fn, fa, levels, act)),
+             got3[3].tolist(), 8 * W + 9 * K + 9 * F + 24),
+        ):
+            row = dict(kernel=name, layout=layout.name, depth=depth, K=K,
+                       F=F if name == "nbbs_wavefront_step" else 0,
+                       tier=nbbs_alloc.tier(cfg, 1, K), ms=ms, plain_ms=plain,
+                       bound_ms=nbytes / HBM_BPS * 1e3, bound_by="bytes",
+                       max_abs_err=0, stats=stats)
+            log(f"[single_tree] {name} {layout.name} depth {depth} K={K} F={row['F']} "
+                f"({row['tier']} memory): bit-identical, stats {stats}; kernel "
+                f"{ms:.4f} ms/launch, plain {plain:.3f} ms/call, bound "
+                f"{row['bound_ms']:.6f} ms")
+            rows.append(row)
+    return rows
+
+
+def quickstart_on_card(torch, dev):
+    """examples/quickstart.py §3-§6 through repro_torch on the card, with
+    the example's assertions."""
+    import numpy as np
+
+    from repro_torch.core import concurrent as conc
+    from repro_torch.core import pool
+    from repro_torch.core.concurrent import BUNCH_PACKED, TreeConfig
+    from repro_torch.kernels import ops
+
+    levels = torch.from_numpy(
+        np.random.default_rng(0).integers(5, 11, 32).astype(np.int32)).to(dev)
+    ones = torch.ones(32, dtype=torch.bool, device=dev)
+    cfg = TreeConfig(depth=10, max_level=0)
+    tree, nodes, ok, stats = conc.wavefront_alloc(cfg, cfg.empty_tree(dev), levels, ones)
+    t2, n2, _, st2 = ops.nbbs_wavefront_alloc(cfg, cfg.empty_tree(dev), levels)
+    if not (torch.equal(t2, tree) and torch.equal(n2, nodes)):
+        raise AssertionError("quickstart §4: the kernel differs from the plain rounds")
+    out = dict(committed=int(ok.sum()), rounds=int(st2["rounds"]),
+               merged_writes=int(st2["merged_writes"]),
+               logical_rmws=int(st2["logical_rmws"]))
+    pcfg = pool.PoolConfig(TreeConfig(depth=8, max_level=0), n_shards=4)
+    trees, pnodes, shard, pok, pstats = pool.pool_wavefront_alloc(
+        pcfg, pcfg.empty_trees(dev), levels - 2, ones)
+    trees, _, _ = pool.pool_wavefront_free(pcfg, trees, pnodes, shard, pok)
+    if trees.any():
+        raise AssertionError("quickstart §5: burst release left a tree non-empty")
+    out.update(pool_committed=int(pok.sum()), pool_overflows=int(pstats["overflows"]),
+               per_shard=torch.bincount(shard[pok], minlength=4).tolist())
+    pcfg6 = TreeConfig(depth=10, max_level=0, layout=BUNCH_PACKED)
+    ptree, pn, pko, pst = ops.nbbs_wavefront_alloc(pcfg6, pcfg6.empty_tree(dev), levels)
+    if not torch.equal(pn, nodes):
+        raise AssertionError("quickstart §6: packed nodes differ from unpacked")
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    ptree, _, _, _ = ops.nbbs_wavefront_step(pcfg6, ptree, pn, pko, none)
+    if ptree.any():
+        raise AssertionError("quickstart §6: packed release left words set")
+    out.update(packed_words=pcfg6.n_state_words, unpacked_words=cfg.n_state_words,
+               packed_merged_writes=int(pst["merged_writes"]))
+    return out
+
+
+def single_op_on_card(torch, dev, layout, calls=160):
+    """The single-op API on a 16K-unit tree: seeded nb_alloc /
+    nb_alloc_size / nb_free / nb_free_batch calls (junk and double frees
+    included), with the state held against a CPU replay at the end."""
+    import numpy as np
+
+    from repro_torch.core import nbbs
+    from repro_torch.core.concurrent import TreeConfig
+
+    depth, total = 14, 1 << 20
+    cfg = TreeConfig(depth=depth, layout=layout)
+    rng = np.random.default_rng(7)
+    states = {d: nbbs.init_state(cfg, d) for d in (dev, torch.device("cpu"))}
+    live, n_ok = [], 0
+    for i in range(calls):
+        r = rng.random()
+        if r < 0.45:
+            lev = int(rng.integers(depth - 8, depth + 1))
+            res = {d: nbbs.nb_alloc(cfg, st, lev) for d, st in states.items()}
+        elif r < 0.7:
+            size = int(rng.integers(64, 1 << 16))
+            res = {d: nbbs.nb_alloc_size(cfg, st, total, size) for d, st in states.items()}
+        elif r < 0.85 and live:
+            off = live.pop(int(rng.integers(len(live))))
+            states = {d: nbbs.nb_free(cfg, st, off) for d, st in states.items()}
+            continue
+        else:
+            burst = live[: len(live) // 2] + [-1, 1 << depth] + live[:1]
+            live = live[len(live) // 2:]
+            offs = np.array(burst, np.int32)
+            act = np.ones(len(burst), bool)
+            res = {d: nbbs.nb_free_batch(cfg, st, torch.from_numpy(offs).to(d),
+                                         torch.from_numpy(act).to(d))
+                   for d, st in states.items()}
+            if not torch.equal(res[dev][1].cpu(), res[torch.device("cpu")][1]):
+                raise AssertionError(f"single-op {layout.name} call {i}: freed differs")
+            states = {d: r_[0] for d, r_ in res.items()}
+            continue
+        (st_d, off_d, ok_d), (st_c, off_c, ok_c) = res[dev], res[torch.device("cpu")]
+        if int(off_d) != int(off_c) or bool(ok_d) != bool(ok_c):
+            raise AssertionError(f"single-op {layout.name} call {i}: offset differs")
+        states = {dev: st_d, torch.device("cpu"): st_c}
+        if bool(ok_d):
+            live.append(int(off_d))
+            n_ok += 1
+    for a, b in zip(states[dev], states[torch.device("cpu")]):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"single-op {layout.name}: state differs from CPU replay")
+    return dict(layout=layout.name, calls=calls, allocated=n_ok, live=len(live))
+
+
+def phase_single_tree(torch, dev, report, state):
+    from repro_torch.core.concurrent import BUNCH_PACKED, UNPACKED
+    from repro_torch.kernels import nbbs_alloc
+
+    rows = single_tree_rows(torch, dev, UNPACKED) + single_tree_rows(torch, dev, BUNCH_PACKED)
+    # the user's single-tree path, with every launch count at 0
+    nbbs_alloc.wavefront_alloc_launches = 0
+    nbbs_alloc.wavefront_step_launches = 0
+    quick = quickstart_on_card(torch, dev)
+    api = [single_op_on_card(torch, dev, layout) for layout in (UNPACKED, BUNCH_PACKED)]
+    launches = {"nbbs_wavefront_alloc": nbbs_alloc.wavefront_alloc_launches,
+                "nbbs_wavefront_step": nbbs_alloc.wavefront_step_launches}
+    log(f"[single_tree] quickstart §3-§6 on the card: {quick}")
+    log(f"[single_tree] single-op API on a 16K-unit tree, equal to the CPU replay: {api}")
+    log(f"[single_tree] single-tree path launches: {launches}")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the single-tree path")
+    state["launches"] = {**state.get("launches", {}), **launches}
+    report["single_tree"] = dict(rows=rows, quickstart=quick, single_op=api,
+                                 launches=launches,
+                                 tier_launches=dict(nbbs_alloc.tier_launches))
+
+
+# ---------------------------------------------------------------------------
+# Phases 5-7: the engine
 # ---------------------------------------------------------------------------
 
 
@@ -261,14 +496,18 @@ def make_trace(seed, n=64, vocab=256):
     return out
 
 
-def run_engine(torch, cfg, params, dev, dtype, S, trace):
+ENGINE_RUNS = ((1, "unpacked"), (4, "unpacked"), (4, "bunch-packed"))
+
+
+def run_engine(torch, cfg, params, dev, dtype, S, trace, layout="unpacked"):
     """Serve `trace` to completion.  On the card every decode chunk runs
     under torch.cuda.set_sync_debug_mode("error") (a host sync raises)
     between two CUDA events."""
     from repro_torch.serve.engine import Request
     from repro_torch.serve.jit_engine import JitServeEngine
 
-    eng = JitServeEngine(cfg, params, dtype=dtype, device=dev, n_shards=S, **GEOM)
+    eng = JitServeEngine(cfg, params, dtype=dtype, device=dev, n_shards=S,
+                         layout=layout, **GEOM)
     chunks = []
     if dev.type == "cuda":
         inner = eng.decode_steps
@@ -318,10 +557,10 @@ def phase_engine(torch, dev, report, state):
     rows = []
     nbbs_alloc.launches = 0
     pa.launches = 0
-    for S in (1, 4):
+    for S, layout in ENGINE_RUNS:
         a0, b0 = nbbs_alloc.launches, pa.launches
         eng, wall, chunks, decode_ms = run_engine(
-            torch, cfg, params, dev, torch.bfloat16, S, trace)
+            torch, cfg, params, dev, torch.bfloat16, S, trace, layout)
         steps = eng.stats["steps"]
         tokens = sum(len(r.out_tokens) for r in eng.completed.values())
         tot = eng.stat_totals()
@@ -337,23 +576,29 @@ def phase_engine(torch, dev, report, state):
         dec = sum(decode_ms)
         steady = sum(decode_ms[1:]) / max(sum(n for n, _, _ in chunks[1:]), 1)
         row = dict(
-            S=S, decode_steps=steps, tokens=tokens, wall_s=wall,
+            S=S, layout=layout, decode_steps=steps, tokens=tokens, wall_s=wall,
             decode_ms_per_step=dec / steps, steady_decode_ms_per_step=steady,
             tokens_per_s=tokens / (dec / 1e3), wall_tokens_per_s=tokens / wall,
             alloc_pages=tot["alloc_pages"], freed_pages=tot["freed_pages"],
             probe_overflows=tot["probe_overflows"],
+            merged_writes=tot["merged_writes"],
+            free_merged_writes=tot["free_merged_writes"],
             nbbs_launches=nbbs_alloc.launches - a0,
             attention_launches=pa.launches - b0,
         )
-        log(f"[engine] S={S}: {steps} decode steps, {tokens} tokens, alloc "
-            f"{row['alloc_pages']} freed {row['freed_pages']} pages; decode "
+        log(f"[engine] S={S} {layout}: {steps} decode steps, {tokens} tokens, alloc "
+            f"{row['alloc_pages']} freed {row['freed_pages']} pages, merged writes "
+            f"{row['merged_writes']} alloc / {row['free_merged_writes']} free; decode "
             f"{row['decode_ms_per_step']:.2f} ms/step (steady "
             f"{steady:.2f}), {row['tokens_per_s']:.1f} tokens/s decode, "
             f"{row['wall_tokens_per_s']:.1f} tokens/s wall ({wall:.2f} s); launches "
             f"nbbs {row['nbbs_launches']} attention {row['attention_launches']}")
         rows.append(row)
-        state[f"S{S}"] = (list(eng.retired_order), dict(eng.done_steps), tot)
+        state[f"S{S}-{layout}"] = (list(eng.retired_order), dict(eng.done_steps), tot)
         del eng
+    # nodes are identical on valid traces, so the schedule is too
+    if state["S4-bunch-packed"][:2] != state["S4-unpacked"][:2]:
+        raise AssertionError("packed S=4 retirement order or steps differ from unpacked")
     launches = {"nbbs_pool_step": nbbs_alloc.launches,
                 "paged_attention": pa.launches}
     log(f"[engine] main-path launches: {launches}")
@@ -361,7 +606,7 @@ def phase_engine(torch, dev, report, state):
         if n <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     report["engine"] = rows
-    state["launches"] = launches
+    state["launches"] = {**state.get("launches", {}), **launches}
     del params
     torch.cuda.empty_cache()
     return rows
@@ -409,7 +654,7 @@ def phase_profile(torch, dev, report, state):
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     ours = {}
-    for key, tag in (("pool_step_kernel", "nbbs_pool_step"),
+    for key, tag in (("nbbs_step_kernel", "nbbs_pool_step"),
                      ("paged_decode_kernel", "paged_attention")):
         hits = [e for e in events if key in e.name]
         ms = sum(e.time_range.end - e.time_range.start for e in hits) / 1e3
@@ -449,22 +694,22 @@ def phase_cpu_trace(torch, report, state):
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
                          dtype=torch.float32)
     rows = []
-    for S in (1, 4):
+    for S, layout in ENGINE_RUNS:
         eng, wall, _, _ = run_engine(torch, cfg, params, torch.device("cpu"),
-                                     torch.float32, S, state["trace"])
-        order, done, tot = state[f"S{S}"]
+                                     torch.float32, S, state["trace"], layout)
+        order, done, tot = state[f"S{S}-{layout}"]
         same = dict(
             retired_order=eng.retired_order == order,
             done_steps=eng.done_steps == done,
             stat_totals=eng.stat_totals() == tot,
         )
-        log(f"[cpu trace] S={S}: {eng.stats['steps']} steps on the CPU in "
+        log(f"[cpu trace] S={S} {layout}: {eng.stats['steps']} steps on the CPU in "
             f"{wall:.1f} s; equal to the card: {same}")
         if not all(same.values()):
             diff = {k: (v, tot.get(k)) for k, v in eng.stat_totals().items()
                     if tot.get(k) != v}
-            raise AssertionError(f"S={S}: CPU trace differs from the card: {diff}")
-        rows.append(dict(S=S, wall_s=wall, **same))
+            raise AssertionError(f"S={S} {layout}: CPU trace differs from the card: {diff}")
+        rows.append(dict(S=S, layout=layout, wall_s=wall, **same))
     report["cpu_trace"] = rows
 
 
@@ -554,22 +799,32 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] {sorted(logs)} in {report['build_s']:.1f} s")
     for src, text in logs.items():
+        entry = ""   # the NBBS kernel's template instance, by its mangled name
         for line in text.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                log(f"[ptxas {src}] {line.strip()}")
+            if "Compiling entry function" in line:
+                m = re.search(r"nbbs_step_kernelILb(\d)ELb(\d)E", line)
+                entry = "" if m is None else "<{}, {}>".format(
+                    "packed" if m[1] == "1" else "unpacked",
+                    "shared" if m[2] == "1" else "device")
+            elif "registers" in line or "spill" in line:
+                log(f"[ptxas {src}{entry}] {line.strip()}")
+    log("[build] nbbs_pool_step.so: nbbs_pool_step, nbbs_wavefront_step and "
+        "nbbs_wavefront_alloc each launch nbbs_step_kernel<layout, tier> by "
+        "the tree layout and the memory tier")
 
     state: dict = {}
     failures = []
     phases = [
         ("attention", lambda: phase_attention(torch, dev, report)),
         ("alloc", lambda: phase_alloc(torch, dev, report)),
+        ("single_tree", lambda: phase_single_tree(torch, dev, report, state)),
         ("engine", lambda: phase_engine(torch, dev, report, state)),
         ("profile", lambda: phase_profile(torch, dev, report, state)),
         ("cpu_trace", lambda: phase_cpu_trace(torch, report, state)),
         ("fp32", lambda: phase_fp32(torch, dev, report)),
     ]
     for pname, fn in phases:
-        if pname == "cpu_trace" and "S4" not in state:
+        if pname == "cpu_trace" and "S4-bunch-packed" not in state:
             failures.append((pname, "needs the engine phase"))
             continue
         t = time.perf_counter()
@@ -590,7 +845,11 @@ def main() -> int:
         return 1
 
     att = report["attention"][0]   # bf16 at the main path's shapes
-    alloc = report["alloc"][0]     # S=1, depth 12
+    alloc = report["alloc"][0]     # unpacked S=1, depth 12
+    # bench_wavefront's widest shape (depth 14, K=256), unpacked
+    single = {r["kernel"]: r for r in report["single_tree"]["rows"]
+              if r["layout"] == "unpacked" and r["depth"] == 14 and r["K"] == 256}
+    # no single PyTorch call computes a buddy-allocator step
     kernels = [
         {"name": "nbbs_pool_step", "route": "cuda",
          "source": "src/repro_torch/csrc/nbbs_pool_step.cu",
@@ -599,6 +858,16 @@ def main() -> int:
          "max_abs_err": 0, "ms": alloc["ms"], "plain_ms": alloc["plain_ms"],
          "bound_ms": alloc["bound_ms"], "bound_by": alloc["bound_by"],
          "library_ms": None},
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "src/repro_torch/csrc/nbbs_pool_step.cu",
+         "replaces": f"src/repro/kernels/nbbs_alloc.py:{line}",
+         "launches": state["launches"][name],
+         "max_abs_err": 0, "ms": single[name]["ms"],
+         "plain_ms": single[name]["plain_ms"], "bound_ms": single[name]["bound_ms"],
+         "bound_by": single[name]["bound_by"], "library_ms": None}
+        for name, line in (("nbbs_wavefront_step", 133), ("nbbs_wavefront_alloc", 86))
+    ] + [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:37",

@@ -15,9 +15,16 @@ Arbitration primitives: the owner-id `.at[].min` scatters become
 `scatter_reduce_(..., "amin", include_self=True)`, and
 `searchsorted(side="left")` becomes `searchsorted(right=False)`.
 
-The round loops of these entry points test `pending.any()` on the host, so they are
-plain reference code; on the card the engine runs the same step inside
-one kernel (`kernels/nbbs_alloc.py`).
+Both layouts of `core/layout.py` run through these rounds: they go
+through `cfg.layout` for the allocatable predicate, the merged commit,
+the release and the logical counts.
+
+The round loops here test `pending.any()` on the host, so they are the
+plain versions.  On the card the same steps run as one kernel launch
+each (`kernels/nbbs_alloc.py`): `ops.nbbs_wavefront_alloc` launches
+kernel 4, `ops.nbbs_wavefront_step` kernel 3 and
+`ops.nbbs_pool_wavefront_step` kernel A; the single-op API of
+`core/nbbs.py` and the engine go through them.
 """
 
 from __future__ import annotations
@@ -26,7 +33,14 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.layout import UNPACKED, TreeLayout, Unpacked, _level_of  # noqa: F401
+from repro_torch.core.layout import (  # noqa: F401  (re-exported API)
+    BUNCH_PACKED,
+    UNPACKED,
+    BunchPacked,
+    TreeLayout,
+    Unpacked,
+    _level_of,
+)
 
 I32 = torch.int32
 INF = torch.iinfo(torch.int32).max
@@ -39,13 +53,6 @@ class TreeConfig:
     depth: int          # leaves are at this level; units = 2**depth
     max_level: int = 0  # largest allocatable block lives at this level
     layout: TreeLayout = UNPACKED
-
-    def __post_init__(self):
-        if not isinstance(self.layout, Unpacked):
-            raise NotImplementedError(
-                "the port has only the Unpacked layout; BunchPacked comes "
-                "with a later slice"
-            )
 
     @property
     def n_words(self) -> int:
@@ -99,7 +106,7 @@ def alloc_rounds(
     Returns (trees, nodes, pending, merged_writes[S], logical_rmws[S],
     won[S, K])."""
     layout = cfg.layout
-    S, N = trees.shape
+    S, N = trees.shape[0], cfg.n_words
     K = levels.shape[0]
     dev = trees.device
     ids = torch.arange(K, dtype=I32, device=dev).expand(S, K)
@@ -195,7 +202,7 @@ def free_rounds(
     the layout's merged release.  Returns (trees, merged_writes[S],
     logical_rmws[S], freed[S, K])."""
     layout = cfg.layout
-    S, N = trees.shape
+    S, N = trees.shape[0], cfg.n_words
     K = nodes.shape[0]
     dev = trees.device
     nodes = nodes.to(I32)
@@ -233,6 +240,13 @@ def wavefront_free(cfg, tree, nodes, active):
     Returns (tree, freed, stats)."""
     tree, merged, logical, freed = free_round(cfg, tree, nodes, active)
     return tree, freed, {"merged_writes": merged, "logical_rmws": logical}
+
+
+def free_batch(cfg, tree, nodes, active):
+    """Release a batch through the merged pass; returns (tree,
+    merged_writes), the historical signature."""
+    tree, merged, _, _ = free_round(cfg, tree, nodes, active)
+    return tree, merged
 
 
 def wavefront_step(

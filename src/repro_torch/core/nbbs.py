@@ -1,26 +1,165 @@
-"""Leaf-page pool API of the jit-resident serving engine.
+"""The allocator's in-graph API: single ops on one tree, on the pool,
+and the leaf-page calls of the serving engine.
 
-Counterpart of `repro/core/nbbs_jax.py:225-295` (`nb_pool_alloc_pages`,
-`nb_pool_free_pages`).  Every allocation is one leaf unit (one KV page),
-so a page handle is the pair (shard, unit offset) and the serving node
-of offset o is always the leaf 2^depth + o: no index[] is needed.
+Counterpart of `repro/core/nbbs_jax.py:75-295`.  `AllocState` carries
+the paper's two arrays, tree[] (the layout's state words) and index[]
+(unit offset -> serving node), as tensors on one device; the calls
+update them with no host sync, so they can sit inside a serving step.
 
-Both calls run the pooled step: an alloc burst through
-`kernels.ops.nbbs_pool_wavefront_step` with no active frees, which gives
-exactly what `pool_wavefront_alloc` gives alone, and a free burst through
-its release half alone (`kernels.nbbs_alloc.pool_free`), which gives
-what `pool_free_round` gives and which handles it applied.  On the card
-that is one kernel launch each; on the CPU it is the plain router.
+  * `nb_alloc` / `nb_alloc_size` are K=1 wavefronts through
+    `kernels.ops.nbbs_wavefront_alloc` (kernel 4 on the card);
+  * `nb_free` / `nb_free_batch` are one merged release through kernel
+    3's release half (`kernels.nbbs_alloc.wavefront_free`);
+  * `nb_pool_alloc` / `nb_pool_free_batch` do the same on the sharded
+    pool through kernel A (`ops.nbbs_pool_wavefront_step`,
+    `nbbs_alloc.pool_free`);
+  * `nb_pool_alloc_pages` / `nb_pool_free_pages` are the engine's
+    leaf-page calls.  Every allocation is one leaf unit (one KV page), so
+    a page handle is the pair (shard, unit offset), the serving node of
+    offset o is always the leaf 2^depth + o, and no index[] is needed.
+
+On CPU tensors every call runs the plain rounds of `core/`.  index[]
+keeps its stale entries after a release, exactly like the paper's
+NBFREE: a re-free through a stale entry lands on a word without
+(derived) OCC and is dropped by the release's validity mask.  Levels and
+unit offsets come from integer arithmetic (`_level_of`), never from a
+float log2.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from repro_torch.core.concurrent import I32
+from repro_torch.core.concurrent import I32, TreeConfig, _level_of, levels_from_sizes
 from repro_torch.core.pool import PoolConfig
 from repro_torch.kernels import nbbs_alloc
-from repro_torch.kernels.ops import nbbs_pool_wavefront_step
+from repro_torch.kernels.ops import nbbs_pool_wavefront_step, nbbs_wavefront_alloc
+
+
+class AllocState(NamedTuple):
+    tree: torch.Tensor   # cfg.layout state words
+    index: torch.Tensor  # int32[units] node that served each unit offset
+
+
+def init_state(cfg: TreeConfig, device="cuda") -> AllocState:
+    return AllocState(
+        tree=cfg.empty_tree(device),
+        index=torch.zeros(1 << cfg.depth, dtype=I32, device=device),
+    )
+
+
+def _node_to_unit_offset(cfg: TreeConfig, node: torch.Tensor) -> torch.Tensor:
+    """Unit offset of a node's chunk: (n - 2^level) * 2^(depth-level);
+    node 0 (no allocation) gives -2^depth, as in JAX."""
+    node = node.to(I32)
+    level = _level_of(node.clamp(min=1), cfg.depth)
+    one = torch.ones_like(level)
+    return (node - (one << level)) << (cfg.depth - level)
+
+
+def _one(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, device=device).reshape(1).to(I32)
+
+
+def nb_alloc(cfg: TreeConfig, state: AllocState, level):
+    """Allocate one chunk at `level`.  Returns (state, unit_offset, ok)."""
+    dev = state.tree.device
+    tree, nodes, ok, _ = nbbs_wavefront_alloc(
+        cfg, state.tree, _one(level, dev),
+        active=torch.ones(1, dtype=torch.bool, device=dev),
+    )
+    node, ok = nodes[0], ok[0]
+    off = _node_to_unit_offset(cfg, node)
+    slot = torch.where(ok, off, 0).long().reshape(1)
+    index = torch.where(ok, state.index.scatter(0, slot, node.reshape(1)), state.index)
+    return AllocState(tree, index), off, ok
+
+
+def nb_free(cfg: TreeConfig, state: AllocState, unit_offset) -> AllocState:
+    """Release the chunk previously allocated at `unit_offset`."""
+    dev = state.tree.device
+    state, _ = nb_free_batch(
+        cfg, state, _one(unit_offset, dev), torch.ones(1, dtype=torch.bool, device=dev)
+    )
+    return state
+
+
+def nb_free_batch(cfg: TreeConfig, state: AllocState, unit_offsets, active):
+    """Release a burst of chunks in one merged pass.  Returns (state,
+    freed bool[K]); double frees and junk offsets are dropped."""
+    unit_offsets = unit_offsets.to(I32)
+    # out-of-range offsets are invalid handles, not aliases of unit 0
+    in_range = (unit_offsets >= 0) & (unit_offsets < (1 << cfg.depth))
+    nodes = state.index[torch.where(in_range, unit_offsets, 0).long()]
+    tree, freed, _ = nbbs_alloc.wavefront_free(
+        cfg, state.tree, nodes, active.to(torch.bool) & in_range
+    )
+    return AllocState(tree, state.index), freed
+
+
+def nb_alloc_size(cfg: TreeConfig, state: AllocState, total_memory: int, size):
+    """Size-based convenience (paper NBALLOC API, rule A5)."""
+    level = levels_from_sizes(cfg, total_memory, _one(size, state.tree.device))[0]
+    return nb_alloc(cfg, state, level)
+
+
+# ---------------------------------------------------------------------------
+# Sharded pool API (S replicated trees, each with its own index[])
+# ---------------------------------------------------------------------------
+
+
+class PoolAllocState(NamedTuple):
+    trees: torch.Tensor  # [S, n_state_words] stacked layout state words
+    index: torch.Tensor  # int32[S, units] per-shard unit offset -> node
+
+
+def init_pool_state(pcfg: PoolConfig, device="cuda") -> PoolAllocState:
+    return PoolAllocState(
+        trees=pcfg.empty_trees(device),
+        index=torch.zeros((pcfg.n_shards, 1 << pcfg.tree.depth), dtype=I32, device=device),
+    )
+
+
+def nb_pool_alloc(pcfg: PoolConfig, state: PoolAllocState, level, lane_id=0):
+    """Allocate one chunk at `level` from the pool, homed by the hash of
+    `lane_id`.  Returns (state, shard, unit_offset, ok)."""
+    dev = state.trees.device
+    none = torch.zeros(0, dtype=I32, device=dev)
+    trees, nodes, shard, ok, _ = nbbs_pool_wavefront_step(
+        pcfg, state.trees, none, none, none, _one(level, dev),
+        lane_ids=_one(lane_id, dev), active=torch.ones(1, dtype=torch.bool, device=dev),
+    )
+    node, s, ok = nodes[0], shard[0], ok[0]
+    off = _node_to_unit_offset(pcfg.tree, node)
+    where = (s.long().reshape(1), torch.where(ok, off, 0).long().reshape(1))
+    index = torch.where(ok, state.index.index_put(where, node.reshape(1)), state.index)
+    return PoolAllocState(trees, index), s, off, ok
+
+
+def nb_pool_free_batch(pcfg: PoolConfig, state: PoolAllocState, shards, unit_offsets,
+                       active):
+    """Release a burst of pool handles in one merged pass per shard.
+    Returns (state, freed bool[K]); stale or junk handles are dropped."""
+    shards, unit_offsets = shards.to(I32), unit_offsets.to(I32)
+    in_range = (
+        (unit_offsets >= 0)
+        & (unit_offsets < (1 << pcfg.tree.depth))
+        & (shards >= 0)
+        & (shards < pcfg.n_shards)
+    )
+    sh = torch.where(in_range, shards, 0)
+    nodes = state.index[sh.long(), torch.where(in_range, unit_offsets, 0).long()]
+    trees, freed, _ = nbbs_alloc.pool_free(
+        pcfg, state.trees, nodes, sh, active.to(torch.bool) & in_range
+    )
+    return PoolAllocState(trees, state.index), freed
+
+
+# ---------------------------------------------------------------------------
+# Leaf-page API (index[]-free; the serving engine)
+# ---------------------------------------------------------------------------
 
 
 def nb_pool_alloc_pages(

@@ -2,9 +2,10 @@
 
 Counterpart of `repro/core/pool.py:81-513` (without the fastpath slab
 and the magazines, which come with a later slice).  The pool is one
-`int32[S, n_words]` stack of trees; the rounds of `core/concurrent.py`
-already take that stack, so the JAX package's `jax.vmap` over shards is
-the leading axis here.
+`int32[S, n_state_words]` stack of tree state words in either layout of
+`core/layout.py`; the rounds of `core/concurrent.py` already take that
+stack, so the JAX package's `jax.vmap` over shards is the leading axis
+here.
 
 Routing: every requester lane has a home shard (Fibonacci hash of its
 lane id, computed in exact uint32 arithmetic), lanes whose shard is

@@ -1,24 +1,39 @@
-"""The pooled NBBS step as one CUDA kernel (`csrc/nbbs_pool_step.cu`).
+"""The NBBS step kernels (`csrc/nbbs_pool_step.cu`), both tree layouts.
 
-Replaces the TPU kernel `repro/kernels/nbbs_alloc.py::_pool_step_kernel`
-(entry `pool_wavefront_step_pallas`).  `pool_step` runs one pool
-scheduler step, the merged release of F handles and then the lockstep
-alloc rounds of K lanes with overflow re-routing, and is bit-identical
-to the plain `core.pool.pool_wavefront_step` (the lockstep router), stat
-slots included, even when lanes overflow.
+One CUDA source gives three launchers over one kernel body, each with
+its own wrapper and launch counter here:
 
-`pool_free` runs the release half alone and also returns which handles
-it applied (the counterpart of `core.pool.pool_free_round`).
+  * `pool_step` / `pool_free` launch kernel A, `nbbs_pool_step`, which
+    replaces `repro/kernels/nbbs_alloc.py::_pool_step_kernel`: one pool
+    scheduler step (merged release of F handles, then the lockstep alloc
+    rounds of K lanes with overflow re-routing), bit-identical to the
+    plain `core.pool.pool_wavefront_step`, stat slots included, even when
+    lanes overflow.  `pool_free` runs its release half alone and also
+    returns which handles it applied (as `core.pool.pool_free_round`).
+    Counter: `launches`.
+  * `wavefront_step` / `wavefront_free` launch kernel 3,
+    `nbbs_wavefront_step`, which replaces `_wavefront_step_kernel`: one
+    tree, release then alloc rounds, the 6-slot `WAVEFRONT_STEP_SLOTS`
+    row; plain version `core.concurrent.wavefront_step`.  `wavefront_free`
+    is its release half alone (K=0), plain version `wavefront_free`.
+    Counter: `wavefront_step_launches`.
+  * `wavefront_alloc` launches kernel 4, `nbbs_wavefront_alloc`, which
+    replaces `_wavefront_kernel`: one tree, alloc rounds only, the
+    3-slot `WAVEFRONT_ALLOC_SLOTS` row; plain version
+    `core.concurrent.wavefront_alloc`.  Counter:
+    `wavefront_alloc_launches`.
 
-For CPU tensors both run their plain version.  For CUDA tensors they
-launch the kernel or raise; `launches` counts the launches.
+For CPU tensors each wrapper runs its plain version.  For CUDA tensors
+it launches its kernel or raises; it never falls back.
 
-Limits (checked here, raised as ValueError): the Unpacked layout only;
-the whole stack of trees and its scratch must fit one block's shared
-memory, 17 bytes per node (S * 2^(depth+1) nodes) plus 28 bytes per
-alloc lane, at most 227 KB: 4096 pages in all (S=1 at depth 12, S=4 at
-depth 10) with up to 2048 lanes.  Alloc lanes are at most 2048 because
-each lane counts its rank among the lanes before it.
+Memory tiers.  A launch needs `workspace_bytes` for the state words and
+the per-node and per-lane scratch.  Up to `SMEM_LIMIT` they live in one
+block's shared memory; above it the wrapper allocates a device-memory
+workspace and the same kernel runs from it.  `tier_launches` counts the
+launches of each tier.  Limits (ValueError): at most `MAX_NODES` = 2^19
+tree nodes in the whole stack (one depth-18 tree, the size the Pallas
+kernel is documented for) and `MAX_LANES` alloc lanes, because each lane
+counts its rank among the lanes before it.
 """
 
 from __future__ import annotations
@@ -27,45 +42,119 @@ import ctypes
 
 import torch
 
-from repro_torch.core.concurrent import I32
-from repro_torch.core.layout import Unpacked
+from repro_torch.core.concurrent import (
+    I32,
+    TreeConfig,
+    wavefront_alloc as wavefront_alloc_plain,
+    wavefront_free as wavefront_free_plain,
+    wavefront_step as wavefront_step_plain,
+)
+from repro_torch.core.layout import BunchPacked
 from repro_torch.core.pool import PoolConfig, pool_free_round, pool_wavefront_step
 from repro_torch.kernels import _build
+from repro_torch.obs.schema import WAVEFRONT_ALLOC_SLOTS, WAVEFRONT_STEP_SLOTS, pack_slots
 
-SMEM_LIMIT = 232_448   # dynamic shared memory one H100 block may use
+SMEM_LIMIT = 230_400   # dynamic shared memory of one H100 block, static arrays set aside
 MAX_LANES = 2048
+MAX_NODES = 1 << 19
 N_STATS = 7            # rounds, merged, logical, free merged/logical, freed, overflows
 
-launches = 0
+launches = 0                  # kernel A (nbbs_pool_step)
+wavefront_step_launches = 0   # kernel 3 (nbbs_wavefront_step)
+wavefront_alloc_launches = 0  # kernel 4 (nbbs_wavefront_alloc)
+tier_launches = {"shared": 0, "device": 0}
 
-_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "nbbs_pool_step": [
+        _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+        _P, _P, _P, _P, _P, _I, _P,
+    ],
+    "nbbs_wavefront_step": [
+        _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P,
+        _P, _I, _P,
+    ],
+    "nbbs_wavefront_alloc": [
+        _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P,
+    ],
+}
+
+
+def workspace_bytes(cfg: TreeConfig, n_trees: int, n_lanes: int) -> int:
+    """Bytes of one launch: the state words, three int32 words and one
+    flag byte per node (prefix +1, owner, descendant), seven int32 words
+    per alloc lane."""
+    T = n_trees * cfg.n_words
+    return 4 * n_trees * cfg.n_state_words + 13 * T + 4 + 28 * n_lanes
 
 
 def smem_bytes(pcfg: PoolConfig, n_lanes: int) -> int:
-    """Dynamic shared memory of one launch: tree, prefix (+1), own and
-    desc words plus one flag byte per node, seven words per lane."""
-    T = pcfg.n_shards * pcfg.n_words
-    return 17 * T + 4 + 28 * n_lanes
+    """`workspace_bytes` of a pool step."""
+    return workspace_bytes(pcfg.tree, pcfg.n_shards, n_lanes)
 
 
-def _lib():
-    lib = _build.load("nbbs_pool_step")
-    if lib.nbbs_pool_step.argtypes is None:
-        lib.nbbs_pool_step.argtypes = _ARGTYPES
-        lib.nbbs_pool_step.restype = ctypes.c_int
-    return lib
+def tier(cfg: TreeConfig, n_trees: int, n_lanes: int) -> str:
+    """Where a launch keeps its state and scratch: "shared" or "device"."""
+    return "shared" if workspace_bytes(cfg, n_trees, n_lanes) <= SMEM_LIMIT else "device"
+
+
+def _fn(name: str):
+    fn = getattr(_build.load("nbbs_pool_step"), name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _i32(x: torch.Tensor, device) -> torch.Tensor:
     if x.device != device:
         raise ValueError(f"tensor on {x.device}, trees on {device}")
     return x.to(I32).contiguous()
+
+
+def _prepare(what, cfg: TreeConfig, n_trees: int, trees: torch.Tensor, shape, K: int):
+    """Check a launch and give its (workspace tensor or None, dynamic
+    shared-memory bytes, tier)."""
+    dev = trees.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {dev}")
+    if trees.dtype != I32 or tuple(trees.shape) != shape:
+        raise ValueError(f"{what}: state must be int32{list(shape)}, got "
+                         f"{trees.dtype}{list(trees.shape)}")
+    if K > MAX_LANES:
+        raise ValueError(f"{what}: {K} alloc lanes > {MAX_LANES} the kernel takes")
+    T = n_trees * cfg.n_words
+    if T > MAX_NODES:
+        raise ValueError(
+            f"{what}: {n_trees} x 2^{cfg.depth + 1} = {T} tree nodes > "
+            f"{MAX_NODES} (one depth-18 tree) the kernel takes"
+        )
+    nbytes = workspace_bytes(cfg, n_trees, K)
+    where = tier(cfg, n_trees, K)
+    if where == "shared":
+        return None, nbytes, where
+    # dropped when the wrapper returns: the caching allocator hands the
+    # block out again only in the order of the current stream
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev), 0, where
+
+
+def _launched(name: str, err: int, where: str) -> None:
+    """Raise on a failed launch, else count it in its tier."""
+    _build.check(err, name)
+    tier_launches[where] += 1
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _packed(cfg: TreeConfig) -> int:
+    return int(isinstance(cfg.layout, BunchPacked))
+
+
+# ---------------------------------------------------------------------------
+# Kernel A: the pooled step
+# ---------------------------------------------------------------------------
 
 
 def pool_step(
@@ -89,7 +178,7 @@ def pool_step(
             pcfg, trees, free_nodes, free_shard, free_active, levels,
             active, max_rounds, lane_ids,
         )
-    out, nodes, shard, _, stats = _launch(
+    out, nodes, shard, _, stats = _launch_pool(
         pcfg, trees, free_nodes, free_shard, free_active, levels, active,
         lane_ids, max_rounds,
     )
@@ -118,7 +207,7 @@ def pool_free(
             "freed": freed.sum(dtype=I32),
         }
     none = torch.zeros(0, dtype=I32, device=dev)
-    out, _, _, freed, stats = _launch(
+    out, _, _, freed, stats = _launch_pool(
         pcfg, trees, free_nodes, free_shard, free_active, none, none, none, 0
     )
     return out, freed != 0, {
@@ -126,31 +215,15 @@ def pool_free(
     }
 
 
-def _launch(pcfg, trees, free_nodes, free_shard, free_active, levels, active,
-            lane_ids, max_rounds):
-    """One kernel launch.  Returns (trees, nodes, shard, freed int32[F],
-    stats)."""
+def _launch_pool(pcfg, trees, free_nodes, free_shard, free_active, levels,
+                 active, lane_ids, max_rounds):
+    """One launch of kernel A.  Returns (trees, nodes, shard, freed
+    int32[F], stats)."""
     global launches
+    cfg, S = pcfg.tree, pcfg.n_shards
+    K, F = levels.shape[0], free_nodes.shape[0]
+    ws, smem, where = _prepare("nbbs_pool_step", cfg, S, trees, (S, cfg.n_state_words), K)
     dev = trees.device
-    if dev.type != "cuda":
-        raise ValueError(f"the pooled kernel runs on cpu or cuda, not {dev}")
-    if not isinstance(pcfg.tree.layout, Unpacked):
-        raise ValueError("the pooled kernel takes the Unpacked layout only")
-    S, N = pcfg.n_shards, pcfg.n_words
-    if trees.dtype != I32 or tuple(trees.shape) != (S, N):
-        raise ValueError(f"trees must be int32[{S}, {N}], got "
-                         f"{trees.dtype}{tuple(trees.shape)}")
-    K = levels.shape[0]
-    if K > MAX_LANES:
-        raise ValueError(f"{K} alloc lanes > {MAX_LANES} the kernel takes")
-    smem = smem_bytes(pcfg, K)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"pool of {S} x 2^{pcfg.tree.depth + 1} nodes with {K} lanes "
-            f"needs {smem} B of shared memory > {SMEM_LIMIT} B: the kernel "
-            "takes at most 4096 pages in all"
-        )
-    F = free_nodes.shape[0]
     trees = trees.contiguous()
     fn, fs, fa = (_i32(t, dev) for t in (free_nodes, free_shard, free_active))
     lv, act, ids = (_i32(t, dev) for t in (levels, active, lane_ids))
@@ -159,15 +232,14 @@ def _launch(pcfg, trees, free_nodes, free_shard, free_active, levels, active,
     shard = torch.empty(K, dtype=I32, device=dev)
     freed = torch.empty(F, dtype=I32, device=dev)
     stats = torch.zeros(N_STATS + 1, dtype=I32, device=dev)  # last slot stays 0
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().nbbs_pool_step(
-        trees.data_ptr(), out.data_ptr(), S, pcfg.tree.depth,
-        pcfg.tree.max_level, fn.data_ptr(), fs.data_ptr(), fa.data_ptr(), F,
-        lv.data_ptr(), act.data_ptr(), ids.data_ptr(), K, max_rounds,
-        nodes.data_ptr(), shard.data_ptr(), freed.data_ptr(), stats.data_ptr(),
-        smem, stream,
+    err = _fn("nbbs_pool_step")(
+        trees.data_ptr(), out.data_ptr(), S, cfg.depth, cfg.max_level,
+        _packed(cfg), cfg.n_state_words, fn.data_ptr(), fs.data_ptr(),
+        fa.data_ptr(), F, lv.data_ptr(), act.data_ptr(), ids.data_ptr(), K,
+        max_rounds, nodes.data_ptr(), shard.data_ptr(), freed.data_ptr(),
+        stats.data_ptr(), _ptr(ws), smem, torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, "nbbs_pool_step")
+    _launched("nbbs_pool_step", err, where)
     launches += 1
     zero = stats[N_STATS]
     named = {
@@ -186,3 +258,104 @@ def _launch(pcfg, trees, free_nodes, free_shard, free_active, levels, active,
         "magazine_refills": zero,
     }
     return out, nodes, shard, freed, named
+
+
+# ---------------------------------------------------------------------------
+# Kernels 3 and 4: one tree
+# ---------------------------------------------------------------------------
+
+
+def wavefront_step(
+    cfg: TreeConfig,
+    tree: torch.Tensor,
+    free_nodes: torch.Tensor,
+    free_active: torch.Tensor,
+    levels: torch.Tensor,
+    active: torch.Tensor,
+    max_rounds: int = 64,
+):
+    """Kernel 3: the merged release of F handles, then the alloc rounds
+    of K lanes, on one tree.  Returns (tree, nodes, ok, stats int32[6])
+    with the row in `WAVEFRONT_STEP_SLOTS` order."""
+    if tree.device.type == "cpu":
+        tree, nodes, ok, stats = wavefront_step_plain(
+            cfg, tree, free_nodes, free_active, levels, active, max_rounds
+        )
+        return tree, nodes, ok, pack_slots(WAVEFRONT_STEP_SLOTS, stats)
+    out, nodes, _, stats = _launch_step(
+        cfg, tree, free_nodes, free_active, levels, active, max_rounds
+    )
+    return out, nodes, nodes > 0, stats
+
+
+def wavefront_free(
+    cfg: TreeConfig, tree: torch.Tensor, nodes: torch.Tensor, active: torch.Tensor
+):
+    """Kernel 3's release half alone (no alloc lanes): one merged pass,
+    as `core.concurrent.wavefront_free`.  Returns (tree, freed bool[F],
+    stats) with `merged_writes` and `logical_rmws`."""
+    if tree.device.type == "cpu":
+        return wavefront_free_plain(cfg, tree, nodes, active)
+    none = torch.zeros(0, dtype=I32, device=tree.device)
+    out, _, freed, stats = _launch_step(cfg, tree, nodes, active, none, none, 0)
+    return out, freed != 0, {"merged_writes": stats[3], "logical_rmws": stats[4]}
+
+
+def wavefront_alloc(
+    cfg: TreeConfig,
+    tree: torch.Tensor,
+    levels: torch.Tensor,
+    active: torch.Tensor,
+    max_rounds: int = 64,
+):
+    """Kernel 4: the alloc rounds of K lanes on one tree, no release.
+    Returns (tree, nodes, ok, stats int32[3]) with the row in
+    `WAVEFRONT_ALLOC_SLOTS` order."""
+    if tree.device.type == "cpu":
+        tree, nodes, ok, stats = wavefront_alloc_plain(
+            cfg, tree, levels, active, max_rounds
+        )
+        return tree, nodes, ok, pack_slots(WAVEFRONT_ALLOC_SLOTS, stats)
+    global wavefront_alloc_launches
+    K = levels.shape[0]
+    ws, smem, where = _prepare("nbbs_wavefront_alloc", cfg, 1, tree, (cfg.n_state_words,), K)
+    dev = tree.device
+    tree = tree.contiguous()
+    lv, act = _i32(levels, dev), _i32(active, dev)
+    out = torch.empty_like(tree)
+    nodes = torch.empty(K, dtype=I32, device=dev)
+    stats = torch.empty(len(WAVEFRONT_ALLOC_SLOTS), dtype=I32, device=dev)
+    err = _fn("nbbs_wavefront_alloc")(
+        tree.data_ptr(), out.data_ptr(), cfg.depth, cfg.max_level, _packed(cfg),
+        cfg.n_state_words, lv.data_ptr(), act.data_ptr(), K, max_rounds,
+        nodes.data_ptr(), stats.data_ptr(), _ptr(ws), smem,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _launched("nbbs_wavefront_alloc", err, where)
+    wavefront_alloc_launches += 1
+    return out, nodes, nodes > 0, stats
+
+
+def _launch_step(cfg, tree, free_nodes, free_active, levels, active, max_rounds):
+    """One launch of kernel 3.  Returns (tree, nodes, freed int32[F],
+    stats int32[6])."""
+    global wavefront_step_launches
+    K, F = levels.shape[0], free_nodes.shape[0]
+    ws, smem, where = _prepare("nbbs_wavefront_step", cfg, 1, tree, (cfg.n_state_words,), K)
+    dev = tree.device
+    tree = tree.contiguous()
+    fn, fa = _i32(free_nodes, dev), _i32(free_active, dev)
+    lv, act = _i32(levels, dev), _i32(active, dev)
+    out = torch.empty_like(tree)
+    nodes = torch.empty(K, dtype=I32, device=dev)
+    freed = torch.empty(F, dtype=I32, device=dev)
+    stats = torch.empty(len(WAVEFRONT_STEP_SLOTS), dtype=I32, device=dev)
+    err = _fn("nbbs_wavefront_step")(
+        tree.data_ptr(), out.data_ptr(), cfg.depth, cfg.max_level, _packed(cfg),
+        cfg.n_state_words, fn.data_ptr(), fa.data_ptr(), F, lv.data_ptr(),
+        act.data_ptr(), K, max_rounds, nodes.data_ptr(), freed.data_ptr(),
+        stats.data_ptr(), _ptr(ws), smem, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _launched("nbbs_wavefront_step", err, where)
+    wavefront_step_launches += 1
+    return out, nodes, freed, stats

@@ -1,5 +1,9 @@
 """Plain PyTorch references for the port's kernels.
 
+`nbbs_wavefront_reference` is the counterpart of `repro/kernels/ref.py:21`:
+the NBBS wavefront kernels' oracle is `core.concurrent.wavefront_alloc`,
+re-exported here.
+
 `paged_attention_reference` is the counterpart of
 `repro/kernels/ref.py:71-117`, the same math: it masks with a finite
 -1e30, so a row with no live page gets uniform weights over the gathered
@@ -13,6 +17,8 @@ import math
 from typing import Optional
 
 import torch
+
+from repro_torch.core.concurrent import wavefront_alloc as nbbs_wavefront_reference  # noqa: F401
 
 NEG_INF = -1e30
 

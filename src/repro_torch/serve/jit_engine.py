@@ -1,9 +1,10 @@
 """Device-resident continuous-batching engine: one decode step with no
 host synchronisation.
 
-Counterpart of `repro/serve/jit_engine.py` in its default allocator
-configuration (Unpacked layout, no fastpath, no magazines, event ring
-off).  Each `engine_step` does, on the device and without a host sync:
+Counterpart of `repro/serve/jit_engine.py` with either tree layout
+(`layout="unpacked"` or `"bunch-packed"`) and without the fastpath, the
+magazines or the event ring.  Each `engine_step` does, on the device
+and without a host sync:
 
   1. boundary alloc: one page for every lane whose next token starts a
      page (`core.nbbs.nb_pool_alloc_pages`, one launch of the pooled
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.concurrent import I32, TreeConfig
+from repro_torch.core.concurrent import BUNCH_PACKED, I32, UNPACKED, TreeConfig
 from repro_torch.core.nbbs import nb_pool_alloc_pages, nb_pool_free_pages
 from repro_torch.core.pool import (
     PoolConfig,
@@ -90,8 +91,6 @@ class EngineConfig:
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
         later = {
-            "layout='bunch-packed'": (
-                self.layout == "bunch-packed", "the BunchPacked layout slice"),
             "fastpath=True": (self.fastpath, "the fastpath and magazines slice"),
             "magazines > 0": (self.magazines > 0, "the fastpath and magazines slice"),
             "ring_capacity > 0": (
@@ -113,7 +112,8 @@ class EngineConfig:
 
     def pool_config(self) -> PoolConfig:
         depth = (self.pages_per_shard - 1).bit_length()
-        return PoolConfig(TreeConfig(depth=depth, max_level=0), self.n_shards)
+        layout = BUNCH_PACKED if self.layout == "bunch-packed" else UNPACKED
+        return PoolConfig(TreeConfig(depth=depth, max_level=0, layout=layout), self.n_shards)
 
     def lane_capacity_tokens(self) -> int:
         return self.max_lane_pages * self.page_tokens
@@ -123,7 +123,7 @@ class EngineConfig:
 class EngineState:
     """Device-resident engine state (updated in place by `engine_step`)."""
 
-    trees: torch.Tensor       # int32[S, n_words] pool tree state
+    trees: torch.Tensor       # int32[S, n_state_words] pool tree state words
     kv_k: torch.Tensor        # [L, P+1, page, Hkv, D] page pool + sink page
     kv_v: torch.Tensor
     page_shard: torch.Tensor  # int32[B, MP] page handle shard, -1 = none

@@ -91,6 +91,8 @@ def test_copied_constants_match():
         k: dataclasses.asdict(v) for k, v in jschema.REGISTRY.items()
     }
     assert tschema.POOL_STEP_SLOTS == jschema.POOL_STEP_SLOTS
+    assert tschema.WAVEFRONT_ALLOC_SLOTS == jschema.WAVEFRONT_ALLOC_SLOTS
+    assert tschema.WAVEFRONT_STEP_SLOTS == jschema.WAVEFRONT_STEP_SLOTS
     assert tschema.ENGINE_METRICS == jschema.ENGINE_METRICS
     src = (Path(tbits.__file__).parents[1] / "csrc" / "nbbs_pool_step.cu").read_text()
     for name in ("OCC_RIGHT", "OCC_LEFT", "COAL_RIGHT", "COAL_LEFT", "OCC"):
@@ -328,10 +330,29 @@ def test_ops_pool_step_matches_interpret_without_overflow(S, depth, seed):
 
 
 def test_kernel_geometry_limit():
-    """The kernel takes the main path's pools (4096 pages at S=1 and
-    S=4, 256 lanes) and states its limit beyond them."""
+    """The main path's pools (4096 pages at S=1 and S=4, 256 lanes) run
+    from shared memory; larger ones from device memory, up to 2^19
+    tree nodes in all."""
     for S, depth in ((1, 12), (4, 10)):
         _, tp = _cfgs(depth, S)
         assert nbbs_alloc.smem_bytes(tp, 256) <= nbbs_alloc.SMEM_LIMIT
+        assert nbbs_alloc.tier(tp.tree, S, 256) == "shared"
     _, big = _cfgs(13, 1)
     assert nbbs_alloc.smem_bytes(big, 256) > nbbs_alloc.SMEM_LIMIT
+    assert nbbs_alloc.tier(big.tree, 1, 256) == "device"
+    assert nbbs_alloc.MAX_NODES == 1 << 19     # one depth-18 tree
+
+
+@pytest.mark.parametrize("slots", ["WAVEFRONT_ALLOC_SLOTS", "WAVEFRONT_STEP_SLOTS",
+                                   "POOL_STEP_SLOTS"])
+def test_stat_rows_pack_and_unpack_like_jax(slots):
+    """The port's copies of `pack_slots` / `unpack_slots` lay a stats
+    dict out in the schema's order, as JAX's do."""
+    names = getattr(tschema, slots)
+    values = {name: i * 7 + 1 for i, name in enumerate(names)}
+    trow = tschema.pack_slots(names, {k: torch.tensor(v) for k, v in values.items()})
+    jrow = jschema.pack_slots(names, {k: jnp.int32(v) for k, v in values.items()})
+    _eq(jrow, trow, slots)
+    assert {k: int(v) for k, v in tschema.unpack_slots(names, trow).items()} == values
+    with pytest.raises(ValueError, match="stat row width"):
+        tschema.unpack_slots(names, trow[:-1])

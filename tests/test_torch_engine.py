@@ -1,8 +1,8 @@
 """The port's jit-resident engine against the JAX engine, step for step.
 
-Both engines run the trace of tests/test_serving.py (`_trace`) on
-stablelm-3b's reduced config at fp32 with the same parameters (moved
-through numpy), 16 pages of 4 tokens, 4 lanes.  After every admission
+Both engines run the trace of tests/test_serving.py (`_trace`), in both
+tree layouts, on stablelm-3b's reduced config at fp32 with the same
+parameters (moved through numpy), 16 pages of 4 tokens, 4 lanes.  After every admission
 the running set, each running sequence's block table and the free page
 count must be identical; at the end the retirement order and steps,
 every generated token and `stat_totals()` (histograms included).
@@ -52,13 +52,15 @@ def _trace(seed, vocab, n=8, max_prompt=14, max_new=8):
     ]
 
 
-@pytest.mark.parametrize("n_shards", [1, 2])
-def test_step_exact_against_jax_engine(model, n_shards):
+def _step_exact(model, n_shards, layout, chunk, seed):
+    """Both engines on one trace, `chunk` decode steps between
+    admissions; returns them once every request has retired."""
     jcfg, cfg, jparams, params = model
-    jeng = JEngine(jcfg, jparams, dtype=jnp.float32, n_shards=n_shards, **GEOM)
+    jeng = JEngine(jcfg, jparams, dtype=jnp.float32, n_shards=n_shards,
+                   layout=layout, **GEOM)
     teng = JitServeEngine(cfg, params, dtype=torch.float32, device="cpu",
-                          n_shards=n_shards, **GEOM)
-    for i, p, mn in _trace(n_shards * 7 + 1, cfg.vocab_size):
+                          n_shards=n_shards, layout=layout, **GEOM)
+    for i, p, mn in _trace(seed, cfg.vocab_size):
         jeng.submit(JRequest(i, p, mn))
         teng.submit(Request(i, p.copy(), mn))
     for _ in range(100):
@@ -70,16 +72,31 @@ def test_step_exact_against_jax_engine(model, n_shards):
         for sid in jeng.running:
             assert (teng.device_block_table(sid) == jeng.device_block_table(sid)).all()
         assert teng.device_free_pages() == jeng.device_free_pages()
-        jeng.decode_steps(1)
-        teng.decode_steps(1)
+        jeng.decode_steps(chunk)
+        teng.decode_steps(chunk)
     assert not teng.running and not teng.waiting
     assert teng.retired_order == jeng.retired_order
     assert teng.done_steps == jeng.done_steps
-    assert len(teng.completed) == 8
     for sid, req in jeng.completed.items():
         assert teng.completed[sid].out_tokens == req.out_tokens, sid
     assert teng.device_free_pages() == jeng.device_free_pages() == 16
     assert teng.stat_totals() == jeng.stat_totals()
+    return jeng, teng
+
+
+def test_step_exact_against_jax_engine_packed(model):
+    """tests/test_serving.py's (2, "bunch-packed", 4) case: the packed
+    tree words, the schedule, the tokens and every counter."""
+    _, teng = _step_exact(model, 2, "bunch-packed", 4, 2 * 7 + 4)
+    assert len(teng.completed) == 8
+    assert tuple(teng.state.trees.shape) == (2, teng.ecfg.pool_config().n_state_words)
+    assert teng.state.trees.dtype == torch.int32 and not teng.state.trees.any()
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_step_exact_against_jax_engine(model, n_shards):
+    _, teng = _step_exact(model, n_shards, "unpacked", 1, n_shards * 7 + 1)
+    assert len(teng.completed) == 8
 
 
 def test_fused_chunks_match_single_steps(model):
@@ -118,7 +135,6 @@ def test_matches_dense_greedy_decode(model):
 
 
 @pytest.mark.parametrize("kw,slice_", [
-    ({"layout": "bunch-packed"}, "BunchPacked"),
     ({"fastpath": True}, "fastpath"),
     ({"magazines": 4}, "magazines"),
     ({"ring_capacity": 64}, "event ring"),

@@ -6,11 +6,15 @@ one, run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_on_card.py
 
-Kernel A (the pooled NBBS step) must be bit-identical to the lockstep
-router, overflow included, and its release half alone to
-`pool_free_round`, per-handle freed flags included; kernel B (paged attention) must agree within
-fp32 2e-5 / bf16 3e-2 and give zeros on rows with no live page.  The
-engine's decode step must run with no host sync.
+The three NBBS launchers of `csrc/nbbs_pool_step.cu` must be
+bit-identical to their plain versions in both tree layouts and both
+memory tiers: kernel A (the pooled step) to the lockstep router,
+overflow included, and its release half alone to `pool_free_round`,
+per-handle freed flags included; kernel 3 to `wavefront_step` and
+`wavefront_free`; kernel 4 to `wavefront_alloc`.  Kernel B (paged
+attention) must agree within fp32 2e-5 / bf16 3e-2 and give zeros on
+rows with no live page.  The engine's decode step must run with no host
+sync in both layouts.
 """
 
 import numpy as np
@@ -18,7 +22,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.concurrent import TreeConfig
+from repro_torch.core import concurrent as conc
+from repro_torch.core.concurrent import BUNCH_PACKED, UNPACKED, TreeConfig
 from repro_torch.core.pool import PoolConfig, pool_free_round, pool_wavefront_step
 from repro_torch.kernels import nbbs_alloc, paged_attention as pa
 from repro_torch.models.transformer import init_params
@@ -28,17 +33,18 @@ from torch_card import cuda_device  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
 
+LAYOUTS = {"unpacked": UNPACKED, "packed": BUNCH_PACKED}
 
-@pytest.mark.parametrize("S,depth", [(1, 6), (4, 5), (1, 12)])
-def test_pool_step_kernel_matches_plain(cuda_device, S, depth):
-    dev = cuda_device
-    pcfg = PoolConfig(TreeConfig(depth=depth), S)
-    rng = np.random.default_rng(S * 100 + depth)
+
+def _pool_churn(dev, pcfg, seed, steps=8, K=64, F=32):
+    """Seeded mixed steps of kernel A against the lockstep router.
+    Returns the overflow count."""
+    S, depth = pcfg.n_shards, pcfg.tree.depth
+    rng = np.random.default_rng(seed)
     trees = pcfg.empty_trees(dev)
     N = pcfg.n_words
-    K, F = 64, 32
     overflows = 0
-    for _ in range(8):
+    for _ in range(steps):
         levels = np.where(rng.random(K) < 0.6, depth,
                           rng.integers(max(depth - 3, 0), depth + 1, size=K))
         args = [
@@ -62,15 +68,108 @@ def test_pool_step_kernel_matches_plain(cuda_device, S, depth):
             assert int(want[4][k]) == int(got[4][k]), k
         overflows += int(got[4]["overflows"])
         trees = got[0]
-    if S > 1:
+    return overflows
+
+
+@pytest.mark.parametrize("layout", ["unpacked", "packed"])
+@pytest.mark.parametrize("S,depth", [(1, 6), (4, 5), (1, 12), (4, 10)])
+def test_pool_step_kernel_matches_plain(cuda_device, S, depth, layout):
+    pcfg = PoolConfig(TreeConfig(depth=depth, layout=LAYOUTS[layout]), S)
+    assert nbbs_alloc.tier(pcfg.tree, S, 64) == "shared"
+    overflows = _pool_churn(cuda_device, pcfg, S * 100 + depth)
+    if S > 1 and depth < 10:
         assert overflows > 0
 
 
+@pytest.mark.parametrize("layout", ["unpacked", "packed"])
+@pytest.mark.parametrize("S,depth", [(1, 14), (2, 13)])
+def test_pool_step_device_tier_matches_plain(cuda_device, S, depth, layout):
+    """Above one block's shared memory the same kernel runs from a
+    device-memory workspace and stays bit-identical."""
+    pcfg = PoolConfig(TreeConfig(depth=depth, layout=LAYOUTS[layout]), S)
+    assert nbbs_alloc.tier(pcfg.tree, S, 64) == "device"
+    before = nbbs_alloc.tier_launches["device"]
+    _pool_churn(cuda_device, pcfg, depth, steps=3)
+    assert nbbs_alloc.tier_launches["device"] >= before + 6
+
+
 def test_pool_step_kernel_refuses_large_pools(cuda_device):
-    pcfg = PoolConfig(TreeConfig(depth=13), 1)
+    """The kernel takes up to 2^19 tree nodes in all (both tiers); a
+    larger stack raises before any launch."""
     z = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="4096 pages"):
-        nbbs_alloc.pool_step(pcfg, pcfg.empty_trees(cuda_device), z, z, z, z, z.bool())
+    for pcfg in (PoolConfig(TreeConfig(depth=19), 1), PoolConfig(TreeConfig(depth=18), 2)):
+        with pytest.raises(ValueError, match="tree nodes"):
+            nbbs_alloc.pool_step(pcfg, pcfg.empty_trees(cuda_device), z, z, z, z, z.bool())
+    cfg = TreeConfig(depth=19, layout=BUNCH_PACKED)
+    with pytest.raises(ValueError, match="tree nodes"):
+        nbbs_alloc.wavefront_alloc(cfg, cfg.empty_tree(cuda_device), z, z.bool())
+
+
+def _single_tree(dev, cfg, seed, steps, K, F):
+    """Kernels 3 and 4 against wavefront_step / wavefront_alloc /
+    wavefront_free on a churn of mixed octaves, frees from the live set
+    plus junk and duplicate handles."""
+    depth = cfg.depth
+    rng = np.random.default_rng(seed)
+    tree = cfg.empty_tree(dev)
+    live = np.zeros(0, np.int32)
+    for step in range(steps):
+        levels = torch.from_numpy(rng.integers(max(depth - 8, 0), depth + 1, size=K)
+                                  .astype(np.int32)).to(dev)
+        act = torch.from_numpy(rng.random(K) < 0.9).to(dev)
+        take = rng.permutation(live)[:F - 4]
+        fn = np.r_[take, rng.integers(0, cfg.n_words + 4, size=3), take[:1]]
+        fn = np.r_[fn, np.zeros(F - len(fn), np.int64)].astype(np.int32)
+        fa = np.arange(F) < len(take) + 4
+        fn, fa = torch.from_numpy(fn).to(dev), torch.from_numpy(fa).to(dev)
+        if step % 2 == 0:
+            want = conc.wavefront_alloc(cfg, tree, levels, act)
+            got = nbbs_alloc.wavefront_alloc(cfg, tree, levels, act)
+            slots = ("rounds", "merged_writes", "logical_rmws")
+        else:
+            want = conc.wavefront_step(cfg, tree, fn, fa, levels, act)
+            got = nbbs_alloc.wavefront_step(cfg, tree, fn, fa, levels, act)
+            slots = ("rounds", "merged_writes", "logical_rmws",
+                     "free_merged_writes", "free_logical_rmws", "freed")
+            wf = conc.wavefront_free(cfg, tree, fn, fa)
+            gf = nbbs_alloc.wavefront_free(cfg, tree, fn, fa)
+            assert torch.equal(wf[0], gf[0]) and torch.equal(wf[1], gf[1])
+            for k in wf[2]:
+                assert int(wf[2][k]) == int(gf[2][k]), k
+            gone = set(fn[fa].tolist())
+            live = np.array([n for n in live if n not in gone], np.int32)
+        for a, b, what in zip(want[:3], got[:3], ("tree", "nodes", "ok")):
+            assert torch.equal(a, b), (step, what)
+        assert [int(want[3][k]) for k in slots] == got[3].tolist(), step
+        live = np.r_[live, got[1][got[2]].cpu().numpy()].astype(np.int32)
+        tree = got[0]
+
+
+@pytest.mark.parametrize("layout", ["unpacked", "packed"])
+@pytest.mark.parametrize("depth,K,tier", [
+    (6, 16, "shared"), (12, 128, "shared"), (14, 256, "device"), (18, 64, "device"),
+])
+def test_single_tree_kernels_match_plain(cuda_device, depth, K, tier, layout):
+    cfg = TreeConfig(depth=depth, layout=LAYOUTS[layout])
+    assert nbbs_alloc.tier(cfg, 1, K) == tier
+    counts = (nbbs_alloc.wavefront_alloc_launches, nbbs_alloc.wavefront_step_launches,
+              nbbs_alloc.tier_launches[tier])
+    _single_tree(cuda_device, cfg, depth, steps=4, K=K, F=K // 2)
+    assert nbbs_alloc.wavefront_alloc_launches == counts[0] + 2
+    assert nbbs_alloc.wavefront_step_launches == counts[1] + 4
+    assert nbbs_alloc.tier_launches[tier] >= counts[2] + 6
+
+
+def test_out_of_range_levels_stay_pending_on_card(cuda_device):
+    cfg = TreeConfig(depth=6, max_level=1, layout=BUNCH_PACKED)
+    levels = torch.tensor([3, 0, 6, 9, 2, -1], dtype=torch.int32, device=cuda_device)
+    act = torch.ones(6, dtype=torch.bool, device=cuda_device)
+    tree = cfg.empty_tree(cuda_device)
+    want = conc.wavefront_alloc(cfg, tree, levels, act, 9)
+    got = nbbs_alloc.wavefront_alloc(cfg, tree, levels, act, 9)
+    assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
+    assert got[3].tolist() == [9, int(want[3]["merged_writes"]),
+                               int(want[3]["logical_rmws"])]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
@@ -100,7 +199,8 @@ def test_paged_attention_kernel_matches_plain(cuda_device, dtype, tol, Hq, Hkv, 
     assert (out[lens == 0] == 0).all()
 
 
-def test_engine_decode_has_no_host_sync(cuda_device):
+@pytest.mark.parametrize("layout", ["unpacked", "bunch-packed"])
+def test_engine_decode_has_no_host_sync(cuda_device, layout):
     """A few decode chunks of the reduced model under
     set_sync_debug_mode("error"), launching both kernels."""
     cfg = get_config("stablelm-3b").reduced()
@@ -108,7 +208,7 @@ def test_engine_decode_has_no_host_sync(cuda_device):
                          device=cuda_device)
     eng = JitServeEngine(cfg, params, num_pages=64, page_tokens=4, max_batch=4,
                          max_lane_pages=8, max_out=8, device=cuda_device,
-                         n_shards=2)
+                         n_shards=2, layout=layout)
     decode = eng.decode_steps
 
     def decode_without_sync(n):
