@@ -10,8 +10,9 @@ Phases (any failure fails the run, exit code 1):
      from `src/repro_torch/csrc/` (one nvcc per source, in parallel): the
      NBBS source gives three launchers (kernel A `nbbs_pool_step`,
      kernel 3 `nbbs_wavefront_step`, kernel 4 `nbbs_wavefront_alloc`)
-     over one kernel body in two layouts; ptxas registers and shared
-     memory of each;
+     over one kernel body in two layouts, two memory tiers, with and
+     without the fastpath slab; ptxas registers and shared memory of
+     each;
   2. kernel B (paged decode attention) against its plain version on the
      card at the main path's shapes (B=256, 32 heads, D=80, page 4, 32
      pages per lane, lengths 0..128 with empty rows) in fp32 and bf16,
@@ -21,7 +22,16 @@ Phases (any failure fails the run, exit code 1):
      S=1, depth 12 and S=4, depth 10, overflow included, in both tree
      layouts (Unpacked and BunchPacked); bit-identical, and so is its
      release half alone (`pool_free`, the engine's retirement burst)
-     with its per-handle freed flags;
+     with its per-handle freed flags; then phase fastpath: the same
+     churn on pools with the fastpath slab (both layouts, and S=1 depth
+     14 in the device-memory tier against the slab-less kernel), pure
+     leaf bursts that must equal an uncarved pool address for address,
+     and kernel A with and without the slab at the engine's own shapes
+     (alloc K=256 F=0, free F=8192 K=0); then phase frontends: the
+     churn loops of bench_constant_occupancy's `fastpath_sweep` and
+     `magazine_sweep` on the card through `ops.nbbs_pool_wavefront_step`
+     (`mags=` for magazines), every counter equal to BENCH_FASTPATH.json
+     and BENCH_MAGAZINE.json;
   4. the single-tree path: kernels 4 and 3 against `wavefront_alloc` /
      `wavefront_step` at bench_wavefront's shapes (depth 14, K in {1,
      16, 256}, levels over 7 octaves: the device-memory tier) and
@@ -37,8 +47,13 @@ Phases (any failure fails the run, exit code 1):
      lanes, 32 pages per lane, decode chunks of 8, no EOS: 64 seeded
      requests at S=1 and at S=4, and at S=4 with `layout="bunch-packed"`
      (its retirement order and steps must equal the unpacked S=4 run's),
-     every decode chunk under torch.cuda.set_sync_debug_mode("error");
-     both kernels' launch counts are read around this phase; then a
+     then with the front ends, 16 requests arriving per decode chunk so
+     that lanes are reused: `fastpath=True` at S=1 and S=4, and
+     `fastpath=True, magazines=4` at S=4 packed (slab and magazine hits
+     must be positive, kernel A launches exactly 2 (3 with magazines)
+     per decode step and admission); every decode chunk under
+     torch.cuda.set_sync_debug_mode("error"); the kernels' launch counts
+     are read around this phase; then a
      `torch.profiler` window of 8 steady decode steps at S=1 (device busy
      share, kernels by device time);
   6. the same trace and geometry through the port's engine on the CPU at
@@ -201,94 +216,349 @@ def phase_attention(torch, dev, report):
 # ---------------------------------------------------------------------------
 
 
-def phase_alloc(torch, dev, report):
+def pool_churn(torch, dev, pcfg, steps, seed, K=256, F=8192):
+    """Kernel A against its plain version over a seeded churn of mixed
+    bursts: live handles freed in waves plus junk, stale, duplicate and
+    out-of-range handles, then K lanes (70% at the leaf octave, the rest
+    up to 4 octaves above) with ids whose hash wraps.  Every step's
+    trees, nodes, shards, ok mask and stat slots must be identical, and
+    the release half alone (`pool_free`) with its freed flags too.
+    Returns the row of times and totals."""
     import numpy as np
 
-    from repro_torch.core.concurrent import BUNCH_PACKED, UNPACKED, TreeConfig
-    from repro_torch.core.pool import PoolConfig, pool_free_round, pool_wavefront_step
+    from repro_torch.core.pool import pool_free_round, pool_wavefront_step
     from repro_torch.kernels import nbbs_alloc
 
+    cfg, S, depth = pcfg.tree, pcfg.n_shards, pcfg.tree.depth
+    what = f"pool step {cfg.layout.name} S={S} depth {depth}" + (
+        " fastpath" if pcfg.fastpath else "")
     big_ids = np.array([2**31 - 1, 2**31 - 2, 2**30 + 7, -1, 2, 3], np.int32)
-    rows = []
-    for layout, S, depth in ((UNPACKED, 1, 12), (UNPACKED, 4, 10),
-                             (BUNCH_PACKED, 1, 12), (BUNCH_PACKED, 4, 10)):
-        pcfg = PoolConfig(TreeConfig(depth=depth, layout=layout), S)
-        rng = np.random.default_rng(depth)
-        K, F, steps = 256, 8192, 200
-        N = pcfg.n_words
-        trees = pcfg.empty_trees(dev)
-        live = np.zeros((0, 2), np.int64)        # (shard, node)
-        kern_ms = plain_ms = 0.0
-        tot = {"overflows": 0, "rounds": 0, "freed": 0, "won": 0}
-        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        for step in range(steps):
-            p_free = 0.6 if step % 4 == 3 else 0.08
-            take = live[rng.random(len(live)) < p_free]
-            fn = rng.integers(0, N, size=F).astype(np.int32)
-            fs = rng.integers(0, S, size=F).astype(np.int32)
-            fa = np.zeros(F, bool)
-            n = len(take)
-            fs[:n], fn[:n], fa[:n] = take[:, 0], take[:, 1], True
-            fa[n : n + 32] = True                    # junk and stale handles
-            fn[n + 32 : n + 40], fs[n + 32 : n + 40] = fn[:8], fs[:8]
-            fa[n + 32 : n + 40] = fa[:8]             # duplicates
-            fs[n + 40], fa[n + 40] = S + 3, True     # shard out of range
-            levels = np.where(rng.random(K) < 0.7, depth,
-                              rng.integers(depth - 4, depth, size=K)).astype(np.int32)
-            act = rng.random(K) < 0.9
-            ids = rng.integers(0, 100_000, size=K).astype(np.int32)
-            ids[rng.integers(0, K, size=len(big_ids))] = big_ids
-            args = [torch.from_numpy(a).to(dev) for a in (fn, fs, fa, levels, act, ids)]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            want = pool_wavefront_step(pcfg, trees, *args[:5], 64, args[5])
-            torch.cuda.synchronize()
-            plain_ms += (time.perf_counter() - t0) * 1e3
-            ev0.record()
-            got = nbbs_alloc.pool_step(pcfg, trees, *args)
-            ev1.record()
-            torch.cuda.synchronize()
-            kern_ms += ev0.elapsed_time(ev1)
-            for a, b, what in zip(want[:4], got[:4], ("trees", "nodes", "shard", "ok")):
-                if not torch.equal(a, b):
-                    raise AssertionError(
-                        f"pool step {layout.name} S={S} step {step}: {what} differ")
-            for k_ in want[4]:
-                if int(want[4][k_]) != int(got[4][k_]):
-                    raise AssertionError(
-                        f"pool step {layout.name} S={S} step {step}: stat {k_} "
-                        f"{int(want[4][k_])} != {int(got[4][k_])}")
-            # the release half alone, with its per-handle freed flags
-            want_f = pool_free_round(pcfg, trees, *args[:3])
-            got_f = nbbs_alloc.pool_free(pcfg, trees, *args[:3])
-            if not (torch.equal(want_f[0], got_f[0]) and torch.equal(want_f[3], got_f[1])):
+    rng = np.random.default_rng(seed)
+    N = pcfg.n_words
+    trees = pcfg.empty_trees(dev)
+    live = np.zeros((0, 2), np.int64)        # (shard, node)
+    kern_ms = plain_ms = 0.0
+    tot = {"overflows": 0, "rounds": 0, "freed": 0, "won": 0, "fastpath_hits": 0,
+           "fastpath_spills": 0}
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for step in range(steps):
+        p_free = 0.6 if step % 4 == 3 else 0.08
+        take = live[rng.random(len(live)) < p_free]
+        fn = rng.integers(0, N, size=F).astype(np.int32)
+        fs = rng.integers(0, S, size=F).astype(np.int32)
+        fa = np.zeros(F, bool)
+        n = len(take)
+        fs[:n], fn[:n], fa[:n] = take[:, 0], take[:, 1], True
+        fa[n : n + 32] = True                    # junk and stale handles
+        fn[n + 32 : n + 40], fs[n + 32 : n + 40] = fn[:8], fs[:8]
+        fa[n + 32 : n + 40] = fa[:8]             # duplicates
+        fs[n + 40], fa[n + 40] = S + 3, True     # shard out of range
+        levels = np.where(rng.random(K) < 0.7, depth,
+                          rng.integers(depth - 4, depth, size=K)).astype(np.int32)
+        act = rng.random(K) < 0.9
+        ids = rng.integers(0, 100_000, size=K).astype(np.int32)
+        ids[rng.integers(0, K, size=len(big_ids))] = big_ids
+        args = [torch.from_numpy(a).to(dev) for a in (fn, fs, fa, levels, act, ids)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = pool_wavefront_step(pcfg, trees, *args[:5], 64, args[5])
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        ev0.record()
+        got = nbbs_alloc.pool_step(pcfg, trees, *args)
+        ev1.record()
+        torch.cuda.synchronize()
+        kern_ms += ev0.elapsed_time(ev1)
+        for a, b, part in zip(want[:4], got[:4], ("trees", "nodes", "shard", "ok")):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what} step {step}: {part} differ")
+        for k_ in want[4]:
+            if int(want[4][k_]) != int(got[4][k_]):
                 raise AssertionError(
-                    f"pool free {layout.name} S={S} step {step}: trees or freed differ")
-            trees = got[0]
-            tot["overflows"] += int(got[4]["overflows"])
-            tot["rounds"] += int(got[4]["rounds"])
-            tot["freed"] += int(got[4]["freed"])
-            nodes, shard = got[1].cpu().numpy(), got[2].cpu().numpy()
-            tot["won"] += int((nodes > 0).sum())
-            freed = set(map(tuple, take.tolist()))
-            keep = np.array([tuple(h) not in freed for h in live.tolist()], bool)
-            live = live[keep] if len(live) else live
-            new = np.stack([shard[nodes > 0], nodes[nodes > 0]], 1).astype(np.int64)
-            live = np.concatenate([live, new])
-        if S > 1 and tot["overflows"] == 0:
-            raise AssertionError(f"the {layout.name} S=4 churn never overflowed")
-        nbytes = 2 * S * pcfg.n_state_words * 4 + F * 12 + K * 12 + K * 8 + 28
-        row = dict(layout=layout.name, S=S, depth=depth, steps=steps, K=K, F=F,
-                   tier=nbbs_alloc.tier(pcfg.tree, S, K), ms=kern_ms / steps,
-                   plain_ms=plain_ms / steps, bound_ms=nbytes / HBM_BPS * 1e3,
-                   bound_by="bytes", max_abs_err=0, **tot)
-        log(f"[alloc] {layout.name} S={S} depth={depth}: {steps} steps bit-identical "
-            f"(overflows {tot['overflows']}, rounds {tot['rounds']}, won {tot['won']}, "
-            f"freed {tot['freed']}); kernel {row['ms']:.4f} ms/launch, plain "
-            f"{row['plain_ms']:.3f} ms/call, bound {row['bound_ms']:.6f} ms")
+                    f"{what} step {step}: stat {k_} {int(want[4][k_])} != {int(got[4][k_])}")
+        # the release half alone, with its per-handle freed flags
+        want_f = pool_free_round(pcfg, trees, *args[:3])
+        got_f = nbbs_alloc.pool_free(pcfg, trees, *args[:3])
+        if not (torch.equal(want_f[0], got_f[0]) and torch.equal(want_f[3], got_f[1])):
+            raise AssertionError(f"pool free {what} step {step}: trees or freed differ")
+        trees = got[0]
+        for k_ in tot:
+            if k_ != "won":
+                tot[k_] += int(got[4][k_])
+        nodes, shard = got[1].cpu().numpy(), got[2].cpu().numpy()
+        tot["won"] += int((nodes > 0).sum())
+        freed = set(map(tuple, take.tolist()))
+        keep = np.array([tuple(h) not in freed for h in live.tolist()], bool)
+        live = live[keep] if len(live) else live
+        new = np.stack([shard[nodes > 0], nodes[nodes > 0]], 1).astype(np.int64)
+        live = np.concatenate([live, new])
+    if S > 1 and tot["overflows"] == 0:
+        raise AssertionError(f"the {what} churn never overflowed")
+    if pcfg.fastpath is not None and tot["fastpath_hits"] == 0:
+        raise AssertionError(f"the {what} churn never hit the slab")
+    nbytes = 2 * S * pcfg.n_state_words * 4 + F * 12 + K * 12 + K * 8 + 28
+    return dict(layout=cfg.layout.name, S=S, depth=depth, steps=steps, K=K, F=F,
+                fastpath=pcfg.fastpath is not None,
+                tier=nbbs_alloc.tier(cfg, S, K, pcfg.fp_state_words),
+                ms=kern_ms / steps, plain_ms=plain_ms / steps,
+                bound_ms=nbytes / HBM_BPS * 1e3, bound_by="bytes", max_abs_err=0, **tot)
+
+
+def log_churn(tag, row):
+    log(f"[{tag}] {row['layout']} S={row['S']} depth={row['depth']}"
+        f"{' fastpath' if row['fastpath'] else ''} ({row['tier']} memory): {row['steps']} "
+        f"steps bit-identical (overflows {row['overflows']}, rounds {row['rounds']}, won "
+        f"{row['won']}, freed {row['freed']}, slab hits {row['fastpath_hits']}, spills "
+        f"{row['fastpath_spills']}); kernel {row['ms']:.4f} ms/launch, plain "
+        f"{row['plain_ms']:.3f} ms/call, bound {row['bound_ms']:.6f} ms")
+
+
+CHURN_POOLS = ((0, 1, 12), (0, 4, 10), (1, 1, 12), (1, 4, 10))  # (packed, S, depth)
+
+
+def phase_alloc(torch, dev, report):
+    from repro_torch.core.concurrent import BUNCH_PACKED, UNPACKED, TreeConfig
+    from repro_torch.core.pool import PoolConfig
+
+    rows = []
+    for packed, S, depth in CHURN_POOLS:
+        layout = BUNCH_PACKED if packed else UNPACKED
+        row = pool_churn(torch, dev, PoolConfig(TreeConfig(depth=depth, layout=layout), S),
+                         200, depth)
+        log_churn("alloc", row)
         rows.append(row)
     report["alloc"] = rows
     return rows
+
+
+def leaf_bursts(torch, dev, fpc, plain, steps, seed, K=256):
+    """Pure leaf-octave bursts through kernel A on a fastpath pool and
+    on the same pool uncarved: the slab's find-first-zero order is the
+    plain pool's rank order over the leftmost leaves, so nodes, shards
+    and ok masks must be equal address for address."""
+    import numpy as np
+
+    from repro_torch.kernels import nbbs_alloc
+
+    depth, S = fpc.tree.depth, fpc.n_shards
+    rng = np.random.default_rng(seed)
+    ta, tb = fpc.empty_trees(dev), plain.empty_trees(dev)
+    live = np.zeros((0, 2), np.int64)
+    hits = spills = 0
+    levels = torch.full((K,), depth, dtype=torch.int32, device=dev)
+    for step in range(steps):
+        take = live[rng.random(len(live)) < (0.5 if step % 3 == 2 else 0.0)]
+        F = 2 * K
+        fn, fs, fa = np.zeros(F, np.int32), np.zeros(F, np.int32), np.zeros(F, bool)
+        n = min(len(take), F)
+        fs[:n], fn[:n], fa[:n] = take[:n, 0], take[:n, 1], True
+        act = rng.random(K) < 0.9
+        ids = rng.integers(0, 100_000, size=K).astype(np.int32)
+        args = [torch.from_numpy(a).to(dev) for a in (fn, fs, fa)]
+        a2 = [torch.from_numpy(a).to(dev) for a in (act, ids)]
+        ga = nbbs_alloc.pool_step(fpc, ta, *args, levels, *a2)
+        gb = nbbs_alloc.pool_step(plain, tb, *args, levels, *a2)
+        for x, y, part in zip(ga[1:4], gb[1:4], ("nodes", "shard", "ok")):
+            if not torch.equal(x, y):
+                raise AssertionError(
+                    f"leaf bursts {fpc.tree.layout.name} S={S} step {step}: {part} differ "
+                    "from the uncarved pool")
+        if int(ga[4]["freed"]) != int(gb[4]["freed"]):
+            raise AssertionError(f"leaf bursts S={S} step {step}: freed differs")
+        hits += int(ga[4]["fastpath_hits"])
+        spills += int(ga[4]["fastpath_spills"])
+        ta, tb = ga[0], gb[0]
+        freed = set(map(tuple, take[:n].tolist()))
+        keep = np.array([tuple(h) not in freed for h in live.tolist()], bool)
+        live = live[keep] if len(live) else live
+        nodes, shard = ga[1].cpu().numpy(), ga[2].cpu().numpy()
+        live = np.concatenate([live, np.stack([shard[nodes > 0], nodes[nodes > 0]], 1)])
+    if hits == 0:
+        raise AssertionError("leaf bursts never hit the slab")
+    return dict(layout=fpc.tree.layout.name, S=S, depth=depth, steps=steps, K=K,
+                fastpath_hits=hits, fastpath_spills=spills)
+
+
+def engine_shape_rows(torch, dev, pcfg):
+    """Kernel A and its plain version at the engine's own shapes on a
+    pool holding 2048 leaf pages: one boundary alloc (K=256 leaf lanes,
+    F=0) and one retirement burst (F=8192 handles of a 256 x 32 block
+    table, the 2048 live ones active, K=0)."""
+    from repro_torch.core.pool import pool_free_round, pool_wavefront_step
+    from repro_torch.kernels import nbbs_alloc
+
+    S, depth, W = pcfg.n_shards, pcfg.tree.depth, pcfg.n_state_words
+    K, F, live = 256, 8192, 2048
+    i32 = dict(dtype=torch.int32, device=dev)
+    none = torch.zeros(0, **i32)
+    levels = torch.full((K,), depth, **i32)
+    act = torch.ones(K, dtype=torch.bool, device=dev)
+    trees = pcfg.empty_trees(dev)
+    fn, fs = torch.zeros(F, **i32), torch.zeros(F, **i32)
+    for j in range(live // K):
+        trees, nodes, shard, ok, _ = nbbs_alloc.pool_step(
+            pcfg, trees, none, none, none, levels, act, torch.arange(K, **i32) + j * K)
+        if not bool(ok.all()):
+            raise AssertionError("engine-shape fill failed")
+        fn[j * K:(j + 1) * K], fs[j * K:(j + 1) * K] = nodes, shard
+    fa = torch.arange(F, device=dev) < live
+    ids = torch.arange(K, **i32) + live
+    rows = []
+    for what, kern, plain, nbytes in (
+        ("alloc K=256 F=0",
+         lambda: nbbs_alloc.pool_step(pcfg, trees, none, none, none, levels, act, ids),
+         lambda: pool_wavefront_step(pcfg, trees, none, none, none.bool(), levels, act, 64,
+                                     ids),
+         2 * S * W * 4 + K * 12 + K * 8 + 28),
+        ("free F=8192 K=0",
+         lambda: nbbs_alloc.pool_free(pcfg, trees, fn, fs, fa),
+         lambda: pool_free_round(pcfg, trees, fn, fs, fa),
+         2 * S * W * 4 + F * 12 + F * 4 + 28),
+    ):
+        want, got = plain(), kern()
+        for a, b in zip(want[:1], got[:1]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"engine shapes {what}: trees differ")
+        rows.append(dict(shape=what, layout=pcfg.tree.layout.name, S=S, depth=depth,
+                         fastpath=pcfg.fastpath is not None,
+                         tier=nbbs_alloc.tier(pcfg.tree, S, K, pcfg.fp_state_words),
+                         ms=queued_ms(torch, kern), plain_ms=host_ms(torch, plain),
+                         bound_ms=nbytes / HBM_BPS * 1e3, bound_by="bytes"))
+    return rows
+
+
+def phase_fastpath(torch, dev, report):
+    """Kernel A with the fastpath slab against its plain version: the
+    alloc phase's churn (same seeds) on carved pools in both layouts and
+    in the device-memory tier, pure leaf bursts against an uncarved pool,
+    and both kernels at the engine's own shapes."""
+    from repro_torch.core.concurrent import BUNCH_PACKED, UNPACKED, TreeConfig
+    from repro_torch.core.fastpath import FastPathConfig
+    from repro_torch.core.pool import PoolConfig
+
+    fp = FastPathConfig(level=None, slab_level=2)
+    no_slab = {(r["layout"], r["S"], r["depth"]): r["ms"] for r in report.get("alloc", [])}
+    rows, leaf, shapes = [], [], []
+    for packed, S, depth in CHURN_POOLS + ((0, 1, 14),):
+        layout = BUNCH_PACKED if packed else UNPACKED
+        tree = TreeConfig(depth=depth, layout=layout)
+        steps = 200 if depth < 14 else 30
+        row = pool_churn(torch, dev, PoolConfig(tree, S, fastpath=fp), steps, depth)
+        if (layout.name, S, depth) not in no_slab:   # the device tier: time both here
+            no_slab[(layout.name, S, depth)] = pool_churn(
+                torch, dev, PoolConfig(tree, S), steps, depth)["ms"]
+        row["ms_no_slab"] = no_slab[(layout.name, S, depth)]
+        log_churn("fastpath", row)
+        log(f"[fastpath]   against the same churn without the slab: "
+            f"{row['ms_no_slab']:.4f} ms/launch")
+        rows.append(row)
+        if depth < 14:
+            lb = leaf_bursts(torch, dev, PoolConfig(tree, S, fastpath=fp), PoolConfig(tree, S),
+                             30, depth + 1)
+            log(f"[fastpath] pure leaf bursts {layout.name} S={S} depth={depth}: "
+                f"{lb['steps']} x K={lb['K']} address-identical to the uncarved pool "
+                f"(slab hits {lb['fastpath_hits']}, spills {lb['fastpath_spills']})")
+            leaf.append(lb)
+    for S, depth in ((1, 12), (4, 10)):
+        tree = TreeConfig(depth=depth)
+        for pcfg in (PoolConfig(tree, S), PoolConfig(tree, S, fastpath=fp)):
+            for r in engine_shape_rows(torch, dev, pcfg):
+                log(f"[fastpath] engine shapes S={S} depth={depth}"
+                    f"{' fastpath' if r['fastpath'] else ''} {r['shape']} ({r['tier']}): "
+                    f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+                    f"{r['bound_ms']:.6f} ms")
+                shapes.append(r)
+    report["fastpath"] = dict(rows=rows, leaf_bursts=leaf, engine_shapes=shapes)
+
+
+def phase_frontends(torch, dev, report):
+    """The churn loops of `benchmarks/bench_constant_occupancy.py`
+    (`fastpath_sweep` and `magazine_sweep`), copied here, on the card
+    through `ops.nbbs_pool_wavefront_step` (`mags=` where the sweep has
+    magazines).  Every counter must equal the committed
+    BENCH_FASTPATH.json and BENCH_MAGAZINE.json records."""
+    from repro_torch.core.concurrent import TreeConfig
+    from repro_torch.core.fastpath import FastPathConfig
+    from repro_torch.core.magazine import MagazineConfig
+    from repro_torch.core.pool import PoolConfig, pool_init_magazines
+    from repro_torch.kernels import ops
+
+    def records(name):
+        return json.loads((ROOT / name).read_text())["records"]
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = {"fastpath_sweep": [], "magazine_sweep": []}
+    for rec in records("BENCH_FASTPATH.json"):
+        d, want = rec["dims"], rec["metrics"]
+        S, depth, W, churn = d["n_shards"], d["depth"], d["width"], d["churn_steps"]
+        fp = FastPathConfig(level=None, slab_level=2) if d["fastpath"] else None
+        pcfg = PoolConfig(TreeConfig(depth=depth), S, fastpath=fp)
+        levels = torch.full((W,), depth, **i32)
+        zeros = torch.zeros(W, **i32)
+        trees, nodes, shard, ok, _ = ops.nbbs_pool_wavefront_step(
+            pcfg, pcfg.empty_trees(dev), zeros, zeros, zeros.bool(), levels)
+        keys = ("merged_writes", "logical_rmws", "free_merged_writes", "free_logical_rmws",
+                "fastpath_hits", "fastpath_spills")
+        tot = dict.fromkeys(keys, 0)
+        t0 = time.perf_counter()
+        for _ in range(churn):
+            trees, nodes, shard, ok, st = ops.nbbs_pool_wavefront_step(
+                pcfg, trees, nodes, shard, ok, levels)
+            for k in keys:
+                tot[k] += int(st[k])
+        wall = time.perf_counter() - t0
+        ops_n = churn * W
+        tot["merged_per_op"] = (tot["merged_writes"] + tot["free_merged_writes"]) / ops_n
+        tot["logical_per_alloc"] = tot["logical_rmws"] / ops_n
+        diff = {k: (v, want[k]) for k, v in tot.items() if v != want[k]}
+        if diff or not bool(ok.all()):
+            raise AssertionError(f"fastpath_sweep {d}: card differs from the record: {diff}")
+        log(f"[frontends] fastpath_sweep S={S} fastpath={d['fastpath']} W={W}: equal to "
+            f"BENCH_FASTPATH.json ({tot['logical_per_alloc']} logical RMWs/alloc, "
+            f"{tot['merged_per_op']} merged writes/op, hits {tot['fastpath_hits']}); "
+            f"{wall * 1e3 / churn:.3f} ms/step")
+        out["fastpath_sweep"].append(dict(dims=d, **tot, ms_per_step=wall * 1e3 / churn))
+    for rec in records("BENCH_MAGAZINE.json"):
+        d, want = rec["dims"], rec["metrics"]
+        cap, S, depth, W, churn = (d["mag_cap"], d["n_shards"], d["depth"], d["width"],
+                                   d["churn_steps"])
+        L = W // d["lanes_per_mag"]
+        pcfg = PoolConfig(TreeConfig(depth=depth), S,
+                          magazines=MagazineConfig(mag_cap=cap) if cap else None)
+        levels = torch.full((W,), depth, **i32)
+        zeros = torch.zeros(W, **i32)
+        mag_lane = torch.arange(W, **i32) % L
+        keys = ("logical_rmws", "free_logical_rmws", "magazine_hits", "magazine_spills")
+        tot = dict.fromkeys(keys, 0)
+        t0 = time.perf_counter()
+        if cap:
+            trees, mags, nodes, shard, ok, _ = ops.nbbs_pool_wavefront_step(
+                pcfg, pcfg.empty_trees(dev), zeros, zeros, zeros.bool(), levels,
+                mags=pool_init_magazines(pcfg, L, dev))
+            for _ in range(churn):
+                trees, mags, nodes, shard, ok, st = ops.nbbs_pool_wavefront_step(
+                    pcfg, trees, nodes, shard, ok, levels, mags=mags,
+                    free_mag_lane=mag_lane, alloc_mag_lane=mag_lane)
+                for k in keys:
+                    tot[k] += int(st[k])
+        else:
+            trees, nodes, shard, ok, _ = ops.nbbs_pool_wavefront_step(
+                pcfg, pcfg.empty_trees(dev), zeros, zeros, zeros.bool(), levels)
+            for _ in range(churn):
+                trees, nodes, shard, ok, st = ops.nbbs_pool_wavefront_step(
+                    pcfg, trees, nodes, shard, ok, levels)
+                tot["logical_rmws"] += int(st["logical_rmws"])
+                tot["free_logical_rmws"] += int(st["free_logical_rmws"])
+        wall = time.perf_counter() - t0
+        tot["rmws_per_op"] = (tot["logical_rmws"] + tot["free_logical_rmws"]) / (2 * churn * W)
+        diff = {k: (v, want[k]) for k, v in tot.items() if v != want[k]}
+        if diff or not bool(ok.all()):
+            raise AssertionError(f"magazine_sweep {d}: card differs from the record: {diff}")
+        log(f"[frontends] magazine_sweep mag_cap={cap}: equal to BENCH_MAGAZINE.json "
+            f"({tot['rmws_per_op']} RMWs/op, hits {tot['magazine_hits']}, spills "
+            f"{tot['magazine_spills']}); {wall * 1e3 / churn:.3f} ms/step")
+        out["magazine_sweep"].append(dict(dims=d, **tot, ms_per_step=wall * 1e3 / churn))
+    report["frontends"] = out
 
 
 # ---------------------------------------------------------------------------
@@ -496,18 +766,33 @@ def make_trace(seed, n=64, vocab=256):
     return out
 
 
-ENGINE_RUNS = ((1, "unpacked"), (4, "unpacked"), (4, "bunch-packed"))
+# (S, layout, front ends, requests arriving per decode chunk; None: all
+# at once).  With all 64 requests at once each takes its own lane of 256
+# and no lane is used twice; the front-end runs let 16 arrive per chunk,
+# so later requests take the lanes of retired ones and their magazines.
+ENGINE_RUNS = (
+    (1, "unpacked", {}, None), (4, "unpacked", {}, None), (4, "bunch-packed", {}, None),
+    (1, "unpacked", {"fastpath": True}, 16), (4, "unpacked", {"fastpath": True}, 16),
+    (4, "bunch-packed", {"fastpath": True, "magazines": 4}, 16),
+)
 
 
-def run_engine(torch, cfg, params, dev, dtype, S, trace, layout="unpacked"):
-    """Serve `trace` to completion.  On the card every decode chunk runs
-    under torch.cuda.set_sync_debug_mode("error") (a host sync raises)
-    between two CUDA events."""
+def run_name(S, layout, kw, per_chunk=None):
+    return f"S{S}-{layout}" + "".join(f"-{k}" for k in sorted(kw)) + (
+        f"-arrivals{per_chunk}" if per_chunk else "")
+
+
+def run_engine(torch, cfg, params, dev, dtype, S, trace, layout="unpacked", per_chunk=None,
+               **kw):
+    """Serve `trace` to completion, `per_chunk` requests arriving before
+    each decode chunk (all at once if None).  On the card every decode
+    chunk runs under torch.cuda.set_sync_debug_mode("error") (a host
+    sync raises) between two CUDA events."""
     from repro_torch.serve.engine import Request
     from repro_torch.serve.jit_engine import JitServeEngine
 
     eng = JitServeEngine(cfg, params, dtype=dtype, device=dev, n_shards=S,
-                         layout=layout, **GEOM)
+                         layout=layout, **GEOM, **kw)
     chunks = []
     if dev.type == "cuda":
         inner = eng.decode_steps
@@ -525,12 +810,17 @@ def run_engine(torch, cfg, params, dev, dtype, S, trace, layout="unpacked"):
             chunks.append((n, a, b))
 
         eng.decode_steps = timed
-    for i, p, mn in trace:
-        eng.submit(Request(i, p.copy(), mn))
+    pending = list(trace)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.run_to_completion(max_steps=10_000, chunk=CHUNK)
+    while True:
+        for i, p, mn in pending[:per_chunk or len(pending)]:
+            eng.submit(Request(i, p.copy(), mn))
+        del pending[:per_chunk or len(pending)]
+        eng.run_to_completion(max_steps=CHUNK if pending else 10_000, chunk=CHUNK)
+        if not pending:
+            break
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -556,11 +846,13 @@ def phase_engine(torch, dev, report, state):
     state["trace"] = trace
     rows = []
     nbbs_alloc.launches = 0
+    nbbs_alloc.slab_launches = 0
     pa.launches = 0
-    for S, layout in ENGINE_RUNS:
+    for S, layout, kw, per_chunk in ENGINE_RUNS:
+        name = run_name(S, layout, kw, per_chunk)
         a0, b0 = nbbs_alloc.launches, pa.launches
         eng, wall, chunks, decode_ms = run_engine(
-            torch, cfg, params, dev, torch.bfloat16, S, trace, layout)
+            torch, cfg, params, dev, torch.bfloat16, S, trace, layout, per_chunk, **kw)
         steps = eng.stats["steps"]
         tokens = sum(len(r.out_tokens) for r in eng.completed.values())
         tot = eng.stat_totals()
@@ -575,8 +867,21 @@ def phase_engine(torch, dev, report, state):
             raise AssertionError(f"S={S}: {free} free pages at the end")
         dec = sum(decode_ms)
         steady = sum(decode_ms[1:]) / max(sum(n for n, _, _ in chunks[1:]), 1)
+        # kernel A: one boundary alloc and one retirement burst per step,
+        # one alloc and one rollback per admission; the magazine path
+        # adds its spill-back and retry launch to every alloc
+        per = 3 if kw.get("magazines") else 2
+        admits = eng.stats["admitted"] + eng.stats["queued_full"]
+        want_launches = per * (steps + admits)
+        if nbbs_alloc.launches - a0 != want_launches:
+            raise AssertionError(f"{name}: {nbbs_alloc.launches - a0} kernel A launches, "
+                                 f"expected {want_launches}")
+        if kw.get("fastpath") and tot["fastpath_hits"] <= 0:
+            raise AssertionError(f"{name}: the slab served no page")
+        if kw.get("magazines") and tot["magazine_hits"] <= 0:
+            raise AssertionError(f"{name}: the magazines served no page")
         row = dict(
-            S=S, layout=layout, decode_steps=steps, tokens=tokens, wall_s=wall,
+            run=name, S=S, layout=layout, decode_steps=steps, tokens=tokens, wall_s=wall,
             decode_ms_per_step=dec / steps, steady_decode_ms_per_step=steady,
             tokens_per_s=tokens / (dec / 1e3), wall_tokens_per_s=tokens / wall,
             alloc_pages=tot["alloc_pages"], freed_pages=tot["freed_pages"],
@@ -585,21 +890,28 @@ def phase_engine(torch, dev, report, state):
             free_merged_writes=tot["free_merged_writes"],
             nbbs_launches=nbbs_alloc.launches - a0,
             attention_launches=pa.launches - b0,
+            **{k: tot[k] for k in ("fastpath_hits", "fastpath_spills", "magazine_hits",
+                                   "magazine_spills", "admit_fastpath_hits",
+                                   "admit_magazine_spills")},
         )
-        log(f"[engine] S={S} {layout}: {steps} decode steps, {tokens} tokens, alloc "
+        log(f"[engine] {name}: {steps} decode steps, {tokens} tokens, alloc "
             f"{row['alloc_pages']} freed {row['freed_pages']} pages, merged writes "
             f"{row['merged_writes']} alloc / {row['free_merged_writes']} free; decode "
             f"{row['decode_ms_per_step']:.2f} ms/step (steady "
             f"{steady:.2f}), {row['tokens_per_s']:.1f} tokens/s decode, "
             f"{row['wall_tokens_per_s']:.1f} tokens/s wall ({wall:.2f} s); launches "
-            f"nbbs {row['nbbs_launches']} attention {row['attention_launches']}")
+            f"nbbs {row['nbbs_launches']} (= {per} x (steps + admissions)) attention "
+            f"{row['attention_launches']}; slab hits {tot['fastpath_hits']} spills "
+            f"{tot['fastpath_spills']}, magazine hits {tot['magazine_hits']} spills "
+            f"{tot['magazine_spills']}")
         rows.append(row)
-        state[f"S{S}-{layout}"] = (list(eng.retired_order), dict(eng.done_steps), tot)
+        state[name] = (list(eng.retired_order), dict(eng.done_steps), tot)
         del eng
     # nodes are identical on valid traces, so the schedule is too
     if state["S4-bunch-packed"][:2] != state["S4-unpacked"][:2]:
         raise AssertionError("packed S=4 retirement order or steps differ from unpacked")
     launches = {"nbbs_pool_step": nbbs_alloc.launches,
+                "nbbs_pool_step_slab": nbbs_alloc.slab_launches,
                 "paged_attention": pa.launches}
     log(f"[engine] main-path launches: {launches}")
     for k, n in launches.items():
@@ -694,22 +1006,23 @@ def phase_cpu_trace(torch, report, state):
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
                          dtype=torch.float32)
     rows = []
-    for S, layout in ENGINE_RUNS:
+    for S, layout, kw, per_chunk in ENGINE_RUNS:
+        name = run_name(S, layout, kw, per_chunk)
         eng, wall, _, _ = run_engine(torch, cfg, params, torch.device("cpu"),
-                                     torch.float32, S, state["trace"], layout)
-        order, done, tot = state[f"S{S}-{layout}"]
+                                     torch.float32, S, state["trace"], layout, per_chunk, **kw)
+        order, done, tot = state[name]
         same = dict(
             retired_order=eng.retired_order == order,
             done_steps=eng.done_steps == done,
             stat_totals=eng.stat_totals() == tot,
         )
-        log(f"[cpu trace] S={S} {layout}: {eng.stats['steps']} steps on the CPU in "
+        log(f"[cpu trace] {name}: {eng.stats['steps']} steps on the CPU in "
             f"{wall:.1f} s; equal to the card: {same}")
         if not all(same.values()):
             diff = {k: (v, tot.get(k)) for k, v in eng.stat_totals().items()
                     if tot.get(k) != v}
-            raise AssertionError(f"S={S} {layout}: CPU trace differs from the card: {diff}")
-        rows.append(dict(S=S, layout=layout, wall_s=wall, **same))
+            raise AssertionError(f"{name}: CPU trace differs from the card: {diff}")
+        rows.append(dict(run=name, wall_s=wall, **same))
     report["cpu_trace"] = rows
 
 
@@ -802,21 +1115,24 @@ def main() -> int:
         entry = ""   # the NBBS kernel's template instance, by its mangled name
         for line in text.splitlines():
             if "Compiling entry function" in line:
-                m = re.search(r"nbbs_step_kernelILb(\d)ELb(\d)E", line)
-                entry = "" if m is None else "<{}, {}>".format(
+                m = re.search(r"nbbs_step_kernelILb(\d)ELb(\d)ELb(\d)E", line)
+                entry = "" if m is None else "<{}, {}, {}>".format(
                     "packed" if m[1] == "1" else "unpacked",
-                    "shared" if m[2] == "1" else "device")
+                    "shared" if m[2] == "1" else "device",
+                    "slab" if m[3] == "1" else "no slab")
             elif "registers" in line or "spill" in line:
                 log(f"[ptxas {src}{entry}] {line.strip()}")
     log("[build] nbbs_pool_step.so: nbbs_pool_step, nbbs_wavefront_step and "
-        "nbbs_wavefront_alloc each launch nbbs_step_kernel<layout, tier> by "
-        "the tree layout and the memory tier")
+        "nbbs_wavefront_alloc each launch nbbs_step_kernel<layout, tier, slab> by "
+        "the tree layout, the memory tier and the fastpath")
 
     state: dict = {}
     failures = []
     phases = [
         ("attention", lambda: phase_attention(torch, dev, report)),
         ("alloc", lambda: phase_alloc(torch, dev, report)),
+        ("fastpath", lambda: phase_fastpath(torch, dev, report)),
+        ("frontends", lambda: phase_frontends(torch, dev, report)),
         ("single_tree", lambda: phase_single_tree(torch, dev, report, state)),
         ("engine", lambda: phase_engine(torch, dev, report, state)),
         ("profile", lambda: phase_profile(torch, dev, report, state)),
@@ -824,7 +1140,7 @@ def main() -> int:
         ("fp32", lambda: phase_fp32(torch, dev, report)),
     ]
     for pname, fn in phases:
-        if pname == "cpu_trace" and "S4-bunch-packed" not in state:
+        if pname == "cpu_trace" and run_name(*ENGINE_RUNS[-1]) not in state:
             failures.append((pname, "needs the engine phase"))
             continue
         t = time.perf_counter()
@@ -846,6 +1162,7 @@ def main() -> int:
 
     att = report["attention"][0]   # bf16 at the main path's shapes
     alloc = report["alloc"][0]     # unpacked S=1, depth 12
+    slab = report["fastpath"]["rows"][0]   # the same churn with the slab
     # bench_wavefront's widest shape (depth 14, K=256), unpacked
     single = {r["kernel"]: r for r in report["single_tree"]["rows"]
               if r["layout"] == "unpacked" and r["depth"] == 14 and r["K"] == 256}
@@ -857,6 +1174,13 @@ def main() -> int:
          "launches": state["launches"]["nbbs_pool_step"],
          "max_abs_err": 0, "ms": alloc["ms"], "plain_ms": alloc["plain_ms"],
          "bound_ms": alloc["bound_ms"], "bound_by": alloc["bound_by"],
+         "library_ms": None},
+        {"name": "nbbs_pool_step (fastpath slab)", "route": "cuda",
+         "source": "src/repro_torch/csrc/nbbs_pool_step.cu",
+         "replaces": "src/repro/kernels/nbbs_alloc.py:249",
+         "launches": state["launches"]["nbbs_pool_step_slab"],
+         "max_abs_err": 0, "ms": slab["ms"], "plain_ms": slab["plain_ms"],
+         "bound_ms": slab["bound_ms"], "bound_by": slab["bound_by"],
          "library_ms": None},
     ] + [
         {"name": name, "route": "cuda",

@@ -1,7 +1,7 @@
 """The allocator's in-graph API: single ops on one tree, on the pool,
 and the leaf-page calls of the serving engine.
 
-Counterpart of `repro/core/nbbs_jax.py:75-295`.  `AllocState` carries
+Counterpart of `repro/core/nbbs_jax.py:75-379`.  `AllocState` carries
 the paper's two arrays, tree[] (the layout's state words) and index[]
 (unit offset -> serving node), as tensors on one device; the calls
 update them with no host sync, so they can sit inside a serving step.
@@ -16,7 +16,15 @@ update them with no host sync, so they can sit inside a serving step.
   * `nb_pool_alloc_pages` / `nb_pool_free_pages` are the engine's
     leaf-page calls.  Every allocation is one leaf unit (one KV page), so
     a page handle is the pair (shard, unit offset), the serving node of
-    offset o is always the leaf 2^depth + o, and no index[] is needed.
+    offset o is always the leaf 2^depth + o, and no index[] is needed;
+  * `nb_pool_alloc_pages_mag` / `nb_pool_free_pages_mag` put the per-lane
+    magazines in front of them (`ops.nbbs_pool_wavefront_step(mags=)`
+    on the card: the magazine ops around kernel A).
+
+With `pcfg.fastpath` the pool's trees are the carved ones of
+`PoolConfig.empty_trees`, and every call above runs the slab phase (in
+kernel A on the card): handles are path-agnostic, a slab page is the
+same leaf node.
 
 On CPU tensors every call runs the plain rounds of `core/`.  index[]
 keeps its stale entries after a release, exactly like the paper's
@@ -33,7 +41,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.concurrent import I32, TreeConfig, _level_of, levels_from_sizes
-from repro_torch.core.pool import PoolConfig
+from repro_torch.core.magazine import MagazineState
+from repro_torch.core.pool import PoolConfig, _mag_stash_phase
 from repro_torch.kernels import nbbs_alloc
 from repro_torch.kernels.ops import nbbs_pool_wavefront_step, nbbs_wavefront_alloc
 
@@ -199,9 +208,15 @@ def nb_pool_free_pages(
     a stale in-range handle whose leaf lacks OCC is dropped by the
     release's validity mask.  Returns (trees, freed bool[K], stats) with
     `free_merged_writes`, `free_logical_rmws` and `freed`."""
+    nodes, sh, act = _page_nodes(pcfg, shards, unit_offsets, active)
+    return nbbs_alloc.pool_free(pcfg, trees, nodes, sh, act)
+
+
+def _page_nodes(pcfg: PoolConfig, shards, unit_offsets, active):
+    """(nodes, shards, active) of leaf page handles; offsets or shards
+    outside the pool geometry are masked out."""
     depth = pcfg.tree.depth
-    shards = shards.to(I32)
-    unit_offsets = unit_offsets.to(I32)
+    shards, unit_offsets = shards.to(I32), unit_offsets.to(I32)
     in_range = (
         (unit_offsets >= 0)
         & (unit_offsets < (1 << depth))
@@ -210,4 +225,68 @@ def nb_pool_free_pages(
     )
     nodes = torch.where(in_range, (1 << depth) + unit_offsets, 0).to(I32)
     sh = torch.where(in_range, shards, 0).to(I32)
-    return nbbs_alloc.pool_free(pcfg, trees, nodes, sh, active & in_range)
+    return nodes, sh, active.to(torch.bool) & in_range
+
+
+def nb_pool_alloc_pages_mag(
+    pcfg: PoolConfig,
+    trees: torch.Tensor,
+    mags: MagazineState,
+    active: torch.Tensor,
+    lane_ids: torch.Tensor,
+    max_rounds: int = 64,
+    mag_lane: torch.Tensor | None = None,
+    mag_rank: torch.Tensor | None = None,
+):
+    """`nb_pool_alloc_pages` with the per-lane magazines in front: each
+    active lane first pops its own magazine (`mag_lane`, -1 = none),
+    the misses take the slab/tree wavefront, and an exhaustion spills
+    every stashed page back and retries (`pool_wavefront_alloc_mag`).
+    `mag_rank` skips the claim's sort (all zeros when every lane has its
+    own magazine).  Returns (trees, mags, shard, unit_offset, ok, stats)."""
+    K = active.shape[0]
+    dev = trees.device
+    depth = pcfg.tree.depth
+    levels = torch.full((K,), depth, dtype=I32, device=dev)
+    none = torch.zeros(0, dtype=I32, device=dev)
+    trees, mags, nodes, shard, ok, stats = nbbs_pool_wavefront_step(
+        pcfg, trees, none, none, none, levels, lane_ids=lane_ids.to(I32),
+        active=active, max_rounds=max_rounds, mags=mags,
+        alloc_mag_lane=None if mag_lane is None else mag_lane.to(I32),
+        alloc_mag_rank=mag_rank,
+    )
+    off = torch.where(ok, nodes - (1 << depth), -1).to(I32)
+    return trees, mags, shard, off, ok, stats
+
+
+def nb_pool_free_pages_mag(
+    pcfg: PoolConfig,
+    trees: torch.Tensor,
+    mags: MagazineState,
+    shards: torch.Tensor,
+    unit_offsets: torch.Tensor,
+    active: torch.Tensor,
+    mag_lane: torch.Tensor | None = None,
+    mag_rank: torch.Tensor | None = None,
+    assume_owned: bool = False,
+):
+    """`nb_pool_free_pages` with the magazine stash in front: valid leaf
+    handles of lanes with a magazine stash there (the page stays
+    allocated until a claim or a spill), the rest take the merged
+    release (kernel A's release half on the card).  `mag_rank` and
+    `assume_owned` are the stash fast paths (`core.pool._mag_stash_phase`).
+    Returns (trees, mags, freed bool[K], stats) with `free_merged_writes`,
+    `free_logical_rmws`, `freed` and the stash drop-throughs
+    `magazine_spills`."""
+    nodes, sh, act = _page_nodes(pcfg, shards, unit_offsets, active)
+    if mag_lane is None:
+        mag_lane = torch.full((nodes.shape[0],), -1, dtype=I32, device=trees.device)
+    mags, act2, stashed, spills = _mag_stash_phase(
+        pcfg, trees, mags, nodes, sh, act, mag_lane,
+        mag_rank=mag_rank, assume_owned=assume_owned,
+    )
+    trees, freed, stats = nbbs_alloc.pool_free(pcfg, trees, nodes, sh, act2)
+    stats = dict(stats)
+    stats["freed"] = stats["freed"] + stashed.sum(dtype=I32)
+    stats["magazine_spills"] = spills
+    return trees, mags, freed | stashed, stats

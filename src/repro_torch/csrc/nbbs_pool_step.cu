@@ -19,7 +19,8 @@
 // overflowed lanes between launches, kernel A re-routes them between
 // rounds inside the launch, so it equals the router even on overflow.
 // The stat row's slots are the prefix of POOL_STEP_SLOTS' order that the
-// entry point fills: 3 (alloc), 6 (step) or 7 (pool, + overflows).
+// entry point fills: 3 (alloc), 6 (step) or 8 (pool, + overflows and
+// fastpath hits).
 //
 // Layouts (template parameter PACKED, uniform over the block):
 //   Unpacked     one int32 status word per node (state stride 2^(depth+1));
@@ -35,6 +36,25 @@
 //                changes a word claims it in a scratch array.
 // Per-node scratch (prefix, owner, descendant/rank map, flags) stays in
 // node-index space in both layouts.
+//
+// Fastpath slab (template parameter SLAB, set when SW > 0, so launches
+// without a fastpath compile it out; kernel A only;
+// repro/kernels/nbbs_alloc.py:281-290 and :310-318, core/fastpath.py):
+// with SW > 0 each shard's row is TW tree
+// words followed by SW bitmap words over n_slots fast-octave blocks,
+// the nodes 2^fp_level .. 2^fp_level + n_slots - 1 under the carve.
+// The release routes each handle by node range before the buddy
+// release: a slab leaf clears its bit (valid = bit set, duplicates to
+// the minimum lane id), a node inside or on the path to the carve is
+// dropped, any other takes the merged release.  Every round starts with
+// the slab claim: the lanes pending at fp_level are ranked in lane
+// order within their current shard (one block prefix sum per shard,
+// never atomic order), and rank r takes the (r+1)-th free slot in
+// find-first-zero order (a block prefix popcount over the slab words,
+// then a binary search and a bit walk: `searchsorted(csum, rank + 1)`).
+// Lanes past the shard's free count fall through to the same round's
+// buddy round.  merged_writes counts slab words changed (against a copy
+// taken before the phase), logical_rmws and fastpath_hits one per claim.
 //
 // Phases of a round, separated by __syncthreads():
 //   0. (packed) derive any/occ per node from the words;
@@ -55,8 +75,8 @@
 // per layer packed; the packed sweep rebuilds every word canonically).
 //
 // Memory tiers (template parameter SHARED).  The state words and scratch
-// take 4*S*W + 13*T + 4 + 28*K bytes (T = S * 2^(depth+1) nodes, W words
-// per tree).  When that fits one block's 227 KB they live in dynamic
+// take 4*S*TW + 4*(3*S*SW + 1) + 13*T + 4 + 28*K bytes (T = S *
+// 2^(depth+1) nodes, TW tree words and SW slab words per shard).  When that fits one block's 227 KB they live in dynamic
 // shared memory; otherwise the wrapper passes a device-memory workspace
 // and the same body runs from it (one block, so __syncthreads() still
 // orders the phases).  The tier is a template parameter, not a runtime
@@ -88,7 +108,7 @@ constexpr int MAX_LEVELS = 32;
 // stat slots, in the order of obs/schema.py's POOL_STEP_SLOTS prefix
 enum {
   ST_ROUNDS, ST_MERGED, ST_LOGICAL, ST_FREE_MERGED, ST_FREE_LOGICAL,
-  ST_FREED, ST_OVERFLOWS, N_STATS
+  ST_FREED, ST_OVERFLOWS, ST_FP_HITS, N_STATS
 };
 
 // per-node flag bits
@@ -107,7 +127,9 @@ constexpr int L_WIN = 8;
 struct Args {
   const int* trees_in;
   int* trees_out;
-  int S, depth, max_level, W;  // W: state words per tree
+  int S, depth, max_level, W;  // W: state words per row (TW + SW)
+  int TW, SW;                  // tree words, slab words (0: no fastpath)
+  int fp_level, slab_level, n_slots;
   const int* free_nodes;
   const int* free_shard;       // null: every handle on shard 0
   const int* free_active;
@@ -163,6 +185,25 @@ __device__ void build_layers(Layers& ly, int depth, int max_level) {
 }
 
 __device__ __forceinline__ int level_of(int n) { return 31 - __clz(n); }
+
+// Fastpath routing by node range (core/fastpath.py in_slab_leaf,
+// in_carved_junk).
+__device__ __forceinline__ bool in_slab(const Args& a, int n) {
+  const int base = 1 << a.fp_level;
+  return n >= base && n < base + a.n_slots;
+}
+
+__device__ __forceinline__ bool in_junk(const Args& a, int n, int N) {
+  if (n < 1 || n >= N || in_slab(a, n)) return false;
+  const int lev = level_of(n), sl = a.slab_level;
+  return lev >= sl ? (n >> (lev - sl)) == (1 << sl) : n == (1 << lev);
+}
+
+// The bits of slab word w (within its shard) that are real slots.
+__device__ __forceinline__ uint32_t slot_mask(int w, int n_slots) {
+  const int rem = n_slots - 32 * w;
+  return rem >= 32 ? 0xffffffffu : (1u << rem) - 1u;
+}
 
 __device__ __forceinline__ int home_of(const int* lane_ids, int k, int S) {
   return lane_ids ? (int)(((uint32_t)lane_ids[k] * FIB_HASH) % (uint32_t)S) : 0;
@@ -230,7 +271,7 @@ __device__ int block_exclusive_scan(int v, int* warp_sums) {
   return out;
 }
 
-template <bool PACKED, bool SHARED>
+template <bool PACKED, bool SHARED, bool SLAB>
 __global__ void __launch_bounds__(THREADS) nbbs_step_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int st[N_STATS];
@@ -238,12 +279,16 @@ __global__ void __launch_bounds__(THREADS) nbbs_step_kernel(const Args a) {
   __shared__ Layers ly;
 
   const int S = a.S, depth = a.depth, max_level = a.max_level, W = a.W;
+  const int TW = a.TW, SW = SLAB ? a.SW : 0, NW = a.S * SW;
   const int K = a.K, F = a.F;
   const int N = 1 << (depth + 1);
   const int T = S * N;
   unsigned char* ws = SHARED ? smem_raw : a.workspace;
-  int* state = reinterpret_cast<int*>(ws);  // [S*W] persistent words
-  int* scan = state + S * W;   // [T+1] exclusive prefix of F_ALLOC
+  int* state = reinterpret_cast<int*>(ws);  // [S*TW] persistent tree words
+  int* slab = state + S * TW;  // [S*SW] persistent slab words
+  int* sold = slab + NW;       // [S*SW] slab words before a phase
+  int* spc = sold + NW;        // [S*SW+1] exclusive prefix of free slots
+  int* scan = spc + NW + 1;    // [T+1] exclusive prefix of F_ALLOC
   int* own = scan + T + 1;     // [T]   min owner id / free dedup
   int* desc = own + T;         // [T]   rank map, min descendant id, claims
   int* lv = desc + T;          // [K]   lane level
@@ -258,7 +303,11 @@ __global__ void __launch_bounds__(THREADS) nbbs_step_kernel(const Args a) {
   const int tid = threadIdx.x, nt = blockDim.x;
 
   if (PACKED && tid == 0) build_layers(ly, depth, max_level);
-  for (int i = tid; i < S * W; i += nt) state[i] = a.trees_in[i];
+  for (int s = 0; s < S; ++s) {  // row s: TW tree words, then SW slab words
+    for (int j = tid; j < TW; j += nt) state[s * TW + j] = a.trees_in[s * W + j];
+    for (int j = tid; j < SW; j += nt)  // sold: the release's merged count
+      slab[s * SW + j] = sold[s * SW + j] = a.trees_in[s * W + TW + j];
+  }
   for (int i = tid; i < T; i += nt) {
     own[i] = INF;
     flags[i] = 0;
@@ -279,16 +328,21 @@ __global__ void __launch_bounds__(THREADS) nbbs_step_kernel(const Args a) {
       const int s = a.free_shard ? a.free_shard[f] : 0, n = a.free_nodes[f];
       if (!a.free_active[f] || s < 0 || s >= S || n <= 0 || n >= N) continue;
       bool occ;
-      if (PACKED) {
+      if (SLAB && in_slab(a, n)) {
+        const int slot = n - (1 << a.fp_level);
+        occ = ((uint32_t)slab[s * SW + (slot >> 5)] >> (slot & 31)) & 1u;
+      } else if (SLAB && in_junk(a, n, N)) {
+        continue;
+      } else if (PACKED) {
         bool any, busy;
-        packed_derive(state + s * W, ly, n, any, occ, busy);
+        packed_derive(state + s * TW, ly, n, any, occ, busy);
       } else {
-        occ = state[s * W + n] & OCC;
+        occ = state[s * TW + n] & OCC;
       }
       if (occ) atomicMin(&own[s * N + n], f);
     }
     __syncthreads();
-    int freed_local = 0, flog_local = 0;
+    int freed_local = 0, flog_local = 0, sfreed_local = 0;
     for (int f = tid; f < F; f += nt) {
       const int s = a.free_shard ? a.free_shard[f] : 0, n = a.free_nodes[f];
       // own[] holds an id only where a handle passed the validity test
@@ -296,7 +350,13 @@ __global__ void __launch_bounds__(THREADS) nbbs_step_kernel(const Args a) {
                          n < N && own[s * N + n] == f;
       if (a.freed_out) a.freed_out[f] = valid;
       if (!valid) continue;
-      const int* words = state + s * W;
+      if (SLAB && in_slab(a, n)) {  // one AND-NOT per handle; duplicates were dropped
+        const int slot = n - (1 << a.fp_level);
+        atomicAnd(&slab[s * SW + (slot >> 5)], ~(int)(1u << (slot & 31)));
+        ++sfreed_local;
+        continue;
+      }
+      const int* words = state + s * TW;
       // run-alone FREENODE climb against the pre-round state
       int cur = n, lev = level_of(n), climb = 0;
       while (lev > max_level) {
@@ -326,7 +386,7 @@ __global__ void __launch_bounds__(THREADS) nbbs_step_kernel(const Args a) {
         const int nroots = 1 << L, nslots = 1 << (Fl - L);
         for (int x = tid; x < S * nroots; x += nt) {
           const int s = x >> L, r = nroots + (x & (nroots - 1));
-          const int nb = s * N, w = s * W + off + r - nroots;
+          const int nb = s * N, w = s * TW + off + r - nroots;
           const uint32_t old = (uint32_t)state[w];
           uint32_t nw = 0;
           bool bocc = false;
@@ -381,6 +441,10 @@ __global__ void __launch_bounds__(THREADS) nbbs_step_kernel(const Args a) {
         __syncthreads();
       }
     }
+    // the slab's AND-NOTs landed before the sweep's barriers
+    for (int i = tid; i < NW; i += nt) fmerged_local += slab[i] != sold[i];
+    freed_local += sfreed_local;
+    flog_local += sfreed_local;
     if (freed_local) atomicAdd(&st[ST_FREED], freed_local);
     if (flog_local) atomicAdd(&st[ST_FREE_LOGICAL], flog_local);
     if (fmerged_local) atomicAdd(&st[ST_FREE_MERGED], fmerged_local);
@@ -397,6 +461,67 @@ __global__ void __launch_bounds__(THREADS) nbbs_step_kernel(const Args a) {
     if (!any || rounds >= a.max_rounds) break;
     ++rounds;
 
+    // C. slab claim of the lanes pending at fp_level, on their shard
+    if (SLAB) {
+      const int fpl = a.fp_level, fbase = 1 << fpl;
+      {  // free slots per word, prefix over all shards' words
+        const int cw = (NW + nt - 1) / nt;
+        const int lo = min(tid * cw, NW), hi = min(lo + cw, NW);
+        int local = 0;
+        for (int i = lo; i < hi; ++i) {
+          sold[i] = slab[i];
+          local += __popc(~(uint32_t)slab[i] & slot_mask(i % SW, a.n_slots));
+        }
+        int run = block_exclusive_scan(local, warp_sums);
+        for (int i = lo; i < hi; ++i) {
+          spc[i] = run;
+          run += __popc(~(uint32_t)sold[i] & slot_mask(i % SW, a.n_slots));
+        }
+        if (tid == nt - 1) spc[NW] = run;
+      }
+      // ranks in lane order within each shard, into tg[] (free until
+      // the buddy round's phase 2)
+      const int ck = (K + nt - 1) / nt;
+      const int klo = min(tid * ck, K), khi = min(klo + ck, K);
+      for (int s = 0; s < S; ++s) {
+        int local = 0;
+        for (int k = klo; k < khi; ++k)
+          local += (lst[k] & L_PENDING) && lv[k] == fpl && sh[k] == s;
+        if (!__syncthreads_or(local)) continue;
+        int run = block_exclusive_scan(local, warp_sums);
+        for (int k = klo; k < khi; ++k)
+          if ((lst[k] & L_PENDING) && lv[k] == fpl && sh[k] == s) tg[k] = run++;
+      }
+      __syncthreads();
+      int hits_local = 0;
+      for (int k = tid; k < K; k += nt) {
+        if (!(lst[k] & L_PENDING) || lv[k] != fpl) continue;
+        const int s = sh[k], r = tg[k];
+        const int first = s * SW, base = spc[first];
+        if (r >= spc[first + SW] - base) continue;  // slab exhausted: buddy round
+        int lo = first, hi = first + SW - 1;  // last word whose prefix <= r
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) >> 1;
+          if (spc[mid] - base <= r) lo = mid; else hi = mid - 1;
+        }
+        uint32_t bits = ~(uint32_t)sold[lo] & slot_mask(lo - first, a.n_slots);
+        for (int j = r - (spc[lo] - base); j > 0; --j) bits &= bits - 1;
+        const int bit = __ffs(bits) - 1;
+        atomicOr(&slab[lo], (int)(1u << bit));
+        nd[k] = fbase + 32 * (lo - first) + bit;
+        lst[k] &= ~L_PENDING;
+        ++hits_local;
+      }
+      __syncthreads();
+      int cmerged_local = 0;
+      for (int i = tid; i < NW; i += nt) cmerged_local += slab[i] != sold[i];
+      if (hits_local) {
+        atomicAdd(&st[ST_FP_HITS], hits_local);
+        atomicAdd(&st[ST_LOGICAL], hits_local);
+      }
+      if (cmerged_local) atomicAdd(&st[ST_MERGED], cmerged_local);
+    }
+
     // 0. derived node views of the packed words
     if (PACKED) {
       for (int i = tid; i < T; i += nt) {
@@ -404,7 +529,7 @@ __global__ void __launch_bounds__(THREADS) nbbs_step_kernel(const Args a) {
         uint8_t d = 0;
         if (n) {
           bool dany, docc, dbusy;
-          packed_derive(state + (i >> (depth + 1)) * W, ly, n, dany, docc, dbusy);
+          packed_derive(state + (i >> (depth + 1)) * TW, ly, n, dany, docc, dbusy);
           d = (dany ? D_ANY : 0) | (docc ? D_OCC : 0);
         }
         flags[i] = d;
@@ -505,8 +630,8 @@ __global__ void __launch_bounds__(THREADS) nbbs_step_kernel(const Args a) {
       if (s & L_WIN) {
         const int t = tg[k];
         if (PACKED) {
-          int* words = state + sh[k] * W;
-          int* claimed = desc + sh[k] * W;
+          int* words = state + sh[k] * TW;
+          int* claimed = desc + sh[k] * TW;
           int first, cnt, L = ly.lroot[lv[k]];
           const int w = packed_word(ly, t, lv[k], first, cnt);
           int mask = 0;
@@ -555,7 +680,10 @@ __global__ void __launch_bounds__(THREADS) nbbs_step_kernel(const Args a) {
   }
 
   // ---------------- outputs ------------------------------------------
-  for (int i = tid; i < S * W; i += nt) a.trees_out[i] = state[i];
+  for (int s = 0; s < S; ++s) {
+    for (int j = tid; j < TW; j += nt) a.trees_out[s * W + j] = state[s * TW + j];
+    for (int j = tid; j < SW; j += nt) a.trees_out[s * W + TW + j] = slab[s * SW + j];
+  }
   int over_local = 0;
   for (int k = tid; k < K; k += nt) {
     a.nodes_out[k] = nd[k];
@@ -568,41 +696,51 @@ __global__ void __launch_bounds__(THREADS) nbbs_step_kernel(const Args a) {
   if (tid < a.n_stats) a.stats_out[tid] = st[tid];
 }
 
-template <bool PACKED, bool SHARED>
+template <bool PACKED, bool SHARED, bool SLAB>
 int launch(const Args& a, int smem_bytes, void* stream) {
   const int smem = SHARED ? smem_bytes : 0;
   if (SHARED) {
     cudaError_t err = cudaFuncSetAttribute(
-        nbbs_step_kernel<PACKED, SHARED>,
+        nbbs_step_kernel<PACKED, SHARED, SLAB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  nbbs_step_kernel<PACKED, SHARED><<<1, THREADS, smem, (cudaStream_t)stream>>>(a);
+  nbbs_step_kernel<PACKED, SHARED, SLAB><<<1, THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// A null workspace selects the shared-memory tier.
-int run(const Args& a, int packed, int smem_bytes, void* stream) {
+template <bool SLAB>
+int run_slab(const Args& a, int packed, int smem_bytes, void* stream) {
   if (a.workspace)
-    return packed ? launch<true, false>(a, smem_bytes, stream)
-                  : launch<false, false>(a, smem_bytes, stream);
-  return packed ? launch<true, true>(a, smem_bytes, stream)
-                : launch<false, true>(a, smem_bytes, stream);
+    return packed ? launch<true, false, SLAB>(a, smem_bytes, stream)
+                  : launch<false, false, SLAB>(a, smem_bytes, stream);
+  return packed ? launch<true, true, SLAB>(a, smem_bytes, stream)
+                : launch<false, true, SLAB>(a, smem_bytes, stream);
+}
+
+// A null workspace selects the shared-memory tier; SW > 0 the slab phase.
+int run(const Args& a, int packed, int smem_bytes, void* stream) {
+  return a.SW > 0 ? run_slab<true>(a, packed, smem_bytes, stream)
+                  : run_slab<false>(a, packed, smem_bytes, stream);
 }
 
 }  // namespace
 
-// Kernel A: one pooled step over S trees (7 stat slots).
+// Kernel A: one pooled step over S trees (8 stat slots).  A row holds W
+// words: W - SW tree words, then SW slab words (SW = 0: no fastpath).
 extern "C" int nbbs_pool_step(const int* trees_in, int* trees_out, int S,
                               int depth, int max_level, int packed, int W,
-                              const int* free_nodes, const int* free_shard,
+                              int SW, int fp_level, int slab_level,
+                              int n_slots, const int* free_nodes,
+                              const int* free_shard,
                               const int* free_active, int F, const int* levels,
                               const int* active, const int* lane_ids, int K,
                               int max_rounds, int* nodes_out, int* shard_out,
                               int* freed_out, int* stats_out,
                               unsigned char* workspace, int smem_bytes,
                               void* stream) {
-  Args a{trees_in, trees_out, S, depth, max_level, W, free_nodes, free_shard,
+  Args a{trees_in, trees_out, S, depth, max_level, W, W - SW, SW, fp_level,
+         slab_level, n_slots, free_nodes, free_shard,
          free_active, F, levels, active, lane_ids, K, max_rounds, nodes_out,
          shard_out, freed_out, stats_out, N_STATS, 1, workspace};
   return run(a, packed, smem_bytes, stream);
@@ -618,7 +756,8 @@ extern "C" int nbbs_wavefront_step(const int* tree_in, int* tree_out,
                                    int* freed_out, int* stats_out,
                                    unsigned char* workspace, int smem_bytes,
                                    void* stream) {
-  Args a{tree_in, tree_out, 1, depth, max_level, W, free_nodes, nullptr,
+  Args a{tree_in, tree_out, 1, depth, max_level, W, W, 0, 0, 0, 0,
+         free_nodes, nullptr,
          free_active, F, levels, active, nullptr, K, max_rounds, nodes_out,
          nullptr, freed_out, stats_out, ST_FREED + 1, 1, workspace};
   return run(a, packed, smem_bytes, stream);
@@ -631,7 +770,8 @@ extern "C" int nbbs_wavefront_alloc(const int* tree_in, int* tree_out,
                                     int K, int max_rounds, int* nodes_out,
                                     int* stats_out, unsigned char* workspace,
                                     int smem_bytes, void* stream) {
-  Args a{tree_in, tree_out, 1, depth, max_level, W, nullptr, nullptr,
+  Args a{tree_in, tree_out, 1, depth, max_level, W, W, 0, 0, 0, 0, nullptr,
+         nullptr,
          nullptr, 0, levels, active, nullptr, K, max_rounds, nodes_out,
          nullptr, nullptr, stats_out, ST_LOGICAL + 1, 0, workspace};
   return run(a, packed, smem_bytes, stream);

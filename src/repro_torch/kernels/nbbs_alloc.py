@@ -8,9 +8,13 @@ its own wrapper and launch counter here:
     scheduler step (merged release of F handles, then the lockstep alloc
     rounds of K lanes with overflow re-routing), bit-identical to the
     plain `core.pool.pool_wavefront_step`, stat slots included, even when
-    lanes overflow.  `pool_free` runs its release half alone and also
-    returns which handles it applied (as `core.pool.pool_free_round`).
-    Counter: `launches`.
+    lanes overflow.  With a fastpath (`pcfg.fastpath`) the launch also
+    runs the slab phase: the release routes handles by node range and
+    every round claims slab slots before the buddy round.  `pool_free`
+    runs its release half alone and also returns which handles it
+    applied (as `core.pool.pool_free_round`).
+    Counter: `launches`; `slab_launches` counts those of them on a pool
+    with a fastpath.
   * `wavefront_step` / `wavefront_free` launch kernel 3,
     `nbbs_wavefront_step`, which replaces `_wavefront_step_kernel`: one
     tree, release then alloc rounds, the 6-slot `WAVEFRONT_STEP_SLOTS`
@@ -26,9 +30,10 @@ its own wrapper and launch counter here:
 For CPU tensors each wrapper runs its plain version.  For CUDA tensors
 it launches its kernel or raises; it never falls back.
 
-Memory tiers.  A launch needs `workspace_bytes` for the state words and
-the per-node and per-lane scratch.  Up to `SMEM_LIMIT` they live in one
-block's shared memory; above it the wrapper allocates a device-memory
+Memory tiers.  A launch needs `workspace_bytes` for the state words
+(slab words included) and the per-node, per-lane and per-slab-word
+scratch.  Up to `SMEM_LIMIT` they live in one block's shared memory;
+above it the wrapper allocates a device-memory
 workspace and the same kernel runs from it.  `tier_launches` counts the
 launches of each tier.  Limits (ValueError): at most `MAX_NODES` = 2^19
 tree nodes in the whole stack (one depth-18 tree, the size the Pallas
@@ -42,6 +47,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import fastpath as fpmod
 from repro_torch.core.concurrent import (
     I32,
     TreeConfig,
@@ -57,9 +63,11 @@ from repro_torch.obs.schema import WAVEFRONT_ALLOC_SLOTS, WAVEFRONT_STEP_SLOTS, 
 SMEM_LIMIT = 230_400   # dynamic shared memory of one H100 block, static arrays set aside
 MAX_LANES = 2048
 MAX_NODES = 1 << 19
-N_STATS = 7            # rounds, merged, logical, free merged/logical, freed, overflows
+N_STATS = 8            # rounds, merged, logical, free merged/logical, freed, overflows,
+                       # fastpath hits
 
 launches = 0                  # kernel A (nbbs_pool_step)
+slab_launches = 0             # kernel A on a pool with a fastpath slab
 wavefront_step_launches = 0   # kernel 3 (nbbs_wavefront_step)
 wavefront_alloc_launches = 0  # kernel 4 (nbbs_wavefront_alloc)
 tier_launches = {"shared": 0, "device": 0}
@@ -67,8 +75,8 @@ tier_launches = {"shared": 0, "device": 0}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "nbbs_pool_step": [
-        _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I,
-        _P, _P, _P, _P, _P, _I, _P,
+        _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
+        _P, _I, _I, _P, _P, _P, _P, _P, _I, _P,
     ],
     "nbbs_wavefront_step": [
         _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P,
@@ -80,22 +88,25 @@ _ARGTYPES = {
 }
 
 
-def workspace_bytes(cfg: TreeConfig, n_trees: int, n_lanes: int) -> int:
-    """Bytes of one launch: the state words, three int32 words and one
-    flag byte per node (prefix +1, owner, descendant), seven int32 words
-    per alloc lane."""
+def workspace_bytes(cfg: TreeConfig, n_trees: int, n_lanes: int, slab_words: int = 0) -> int:
+    """Bytes of one launch: the tree state words, three int32 words and
+    one flag byte per node (prefix +1, owner, descendant), seven int32
+    words per alloc lane, and per slab word three int32 words (the word,
+    its copy before a phase, the free-slot prefix) plus one."""
     T = n_trees * cfg.n_words
-    return 4 * n_trees * cfg.n_state_words + 13 * T + 4 + 28 * n_lanes
+    return (4 * n_trees * cfg.n_state_words + 4 * (3 * n_trees * slab_words + 1)
+            + 13 * T + 4 + 28 * n_lanes)
 
 
 def smem_bytes(pcfg: PoolConfig, n_lanes: int) -> int:
     """`workspace_bytes` of a pool step."""
-    return workspace_bytes(pcfg.tree, pcfg.n_shards, n_lanes)
+    return workspace_bytes(pcfg.tree, pcfg.n_shards, n_lanes, pcfg.fp_state_words)
 
 
-def tier(cfg: TreeConfig, n_trees: int, n_lanes: int) -> str:
+def tier(cfg: TreeConfig, n_trees: int, n_lanes: int, slab_words: int = 0) -> str:
     """Where a launch keeps its state and scratch: "shared" or "device"."""
-    return "shared" if workspace_bytes(cfg, n_trees, n_lanes) <= SMEM_LIMIT else "device"
+    fits = workspace_bytes(cfg, n_trees, n_lanes, slab_words) <= SMEM_LIMIT
+    return "shared" if fits else "device"
 
 
 def _fn(name: str):
@@ -112,7 +123,8 @@ def _i32(x: torch.Tensor, device) -> torch.Tensor:
     return x.to(I32).contiguous()
 
 
-def _prepare(what, cfg: TreeConfig, n_trees: int, trees: torch.Tensor, shape, K: int):
+def _prepare(what, cfg: TreeConfig, n_trees: int, trees: torch.Tensor, shape, K: int,
+             slab_words: int = 0):
     """Check a launch and give its (workspace tensor or None, dynamic
     shared-memory bytes, tier)."""
     dev = trees.device
@@ -129,8 +141,8 @@ def _prepare(what, cfg: TreeConfig, n_trees: int, trees: torch.Tensor, shape, K:
             f"{what}: {n_trees} x 2^{cfg.depth + 1} = {T} tree nodes > "
             f"{MAX_NODES} (one depth-18 tree) the kernel takes"
         )
-    nbytes = workspace_bytes(cfg, n_trees, K)
-    where = tier(cfg, n_trees, K)
+    nbytes = workspace_bytes(cfg, n_trees, K, slab_words)
+    where = tier(cfg, n_trees, K, slab_words)
     if where == "shared":
         return None, nbytes, where
     # dropped when the wrapper returns: the caching allocator hands the
@@ -219,10 +231,11 @@ def _launch_pool(pcfg, trees, free_nodes, free_shard, free_active, levels,
                  active, lane_ids, max_rounds):
     """One launch of kernel A.  Returns (trees, nodes, shard, freed
     int32[F], stats)."""
-    global launches
-    cfg, S = pcfg.tree, pcfg.n_shards
+    global launches, slab_launches
+    cfg, S, SW = pcfg.tree, pcfg.n_shards, pcfg.fp_state_words
     K, F = levels.shape[0], free_nodes.shape[0]
-    ws, smem, where = _prepare("nbbs_pool_step", cfg, S, trees, (S, cfg.n_state_words), K)
+    ws, smem, where = _prepare("nbbs_pool_step", cfg, S, trees, (S, pcfg.n_state_words),
+                               K, SW)
     dev = trees.device
     trees = trees.contiguous()
     fn, fs, fa = (_i32(t, dev) for t in (free_nodes, free_shard, free_active))
@@ -232,23 +245,29 @@ def _launch_pool(pcfg, trees, free_nodes, free_shard, free_active, levels,
     shard = torch.empty(K, dtype=I32, device=dev)
     freed = torch.empty(F, dtype=I32, device=dev)
     stats = torch.zeros(N_STATS + 1, dtype=I32, device=dev)  # last slot stays 0
+    fp = pcfg.fastpath
+    fp_geom = (0, 0, 0) if fp is None else (
+        fpmod.fp_level(cfg, fp), fp.slab_level, fpmod.fp_n_slots(cfg, fp))
     err = _fn("nbbs_pool_step")(
         trees.data_ptr(), out.data_ptr(), S, cfg.depth, cfg.max_level,
-        _packed(cfg), cfg.n_state_words, fn.data_ptr(), fs.data_ptr(),
+        _packed(cfg), pcfg.n_state_words, SW, *fp_geom, fn.data_ptr(), fs.data_ptr(),
         fa.data_ptr(), F, lv.data_ptr(), act.data_ptr(), ids.data_ptr(), K,
         max_rounds, nodes.data_ptr(), shard.data_ptr(), freed.data_ptr(),
         stats.data_ptr(), _ptr(ws), smem, torch.cuda.current_stream(dev).cuda_stream,
     )
     _launched("nbbs_pool_step", err, where)
     launches += 1
+    slab_launches += fp is not None
     zero = stats[N_STATS]
+    fast = zero if fp is None else (
+        (act != 0) & (lv == fp_geom[0])).sum(dtype=I32)
     named = {
         "rounds": stats[0],
         "merged_writes": stats[1],
         "logical_rmws": stats[2],
         "overflows": stats[6],
-        "fastpath_hits": zero,
-        "fastpath_spills": zero,
+        "fastpath_hits": stats[7],
+        "fastpath_spills": fast - stats[7],
         "free_writes": stats[3],
         "free_merged_writes": stats[3],
         "free_logical_rmws": stats[4],

@@ -2,19 +2,30 @@
 host synchronisation.
 
 Counterpart of `repro/serve/jit_engine.py` with either tree layout
-(`layout="unpacked"` or `"bunch-packed"`) and without the fastpath, the
-magazines or the event ring.  Each `engine_step` does, on the device
-and without a host sync:
+(`layout="unpacked"` or `"bunch-packed"`), the fastpath slab
+(`fastpath=True`) and the per-lane magazines (`magazines=mag_cap`), and
+without the event ring.  Each `engine_step` does, on the device and
+without a host sync:
 
   1. boundary alloc: one page for every lane whose next token starts a
      page (`core.nbbs.nb_pool_alloc_pages`, one launch of the pooled
-     NBBS kernel on the card);
+     NBBS kernel A on the card, slab claim included).  With magazines
+     each lane first pops its own magazine with a zero rank
+     (`nb_pool_alloc_pages_mag`): the claim, then kernel A for the
+     misses, then a second launch for the spill-back and retry, masked
+     to nothing unless a lane failed while magazines hold pages;
   2. paged decode of every writable lane (`serve.paged_decode`, one
      launch of the paged-attention kernel per layer on the card), then
      greedy sampling;
   3. retirement and one merged burst free of every retired lane's pages
-     (`core.nbbs.nb_pool_free_pages`, one more pooled launch);
-  4. the schema's per-step metrics (`obs.schema.ENGINE_METRICS`).
+     (`core.nbbs.nb_pool_free_pages`, one more launch of kernel A's
+     release half).  With magazines a retired lane first stashes its
+     pages in its own magazine, ranked by column, its handles known
+     owned (`nb_pool_free_pages_mag`);
+  4. the schema's per-step metrics (`obs.schema.ENGINE_METRICS`); the
+     capacity gauges count stashed pages as free.
+
+Kernel A launches per decode step: 2 without magazines, 3 with them.
 
 JAX threads a donated, immutable `EngineState` through a jitted step;
 here `EngineState` is a set of tensors that the step updates in place
@@ -39,12 +50,21 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.concurrent import BUNCH_PACKED, I32, UNPACKED, TreeConfig
-from repro_torch.core.nbbs import nb_pool_alloc_pages, nb_pool_free_pages
+from repro_torch.core.fastpath import FastPathConfig
+from repro_torch.core.magazine import MagazineConfig, MagazineState, mag_total
+from repro_torch.core.nbbs import (
+    nb_pool_alloc_pages,
+    nb_pool_alloc_pages_mag,
+    nb_pool_free_pages,
+    nb_pool_free_pages_mag,
+)
 from repro_torch.core.pool import (
     PoolConfig,
     home_shard,
     pool_free_units,
+    pool_init_magazines,
     pool_largest_run,
+    pool_mag_free_per_shard,
 )
 from repro_torch.obs import metrics as om
 from repro_torch.obs.schema import ENGINE_METRICS
@@ -71,8 +91,13 @@ class EngineConfig:
     eos: Optional[int] = None
     dtype: str = "float32"
     max_rounds: int = 64
+    # fixed-size fast path (core/fastpath.py): a per-shard bitmap slab of
+    # single pages carved out of the buddy tree
     fastpath: bool = False
+    fastpath_slab_level: int = 2
+    # per-lane magazine capacity (core/magazine.py); 0 disables them
     magazines: int = 0
+    magazine_refill: int = 0
     ring_capacity: int = 0
 
     def __post_init__(self):
@@ -86,21 +111,17 @@ class EngineConfig:
             raise ValueError("num_pages must divide evenly across shards")
         if self.layout not in ("unpacked", "bunch-packed"):
             raise ValueError(f"unknown tree layout {self.layout!r}")
-        if self.magazines < 0:
-            raise ValueError("magazines must be >= 0")
+        if self.magazines < 0 or self.magazine_refill < 0:
+            raise ValueError("magazines/magazine_refill must be >= 0")
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
-        later = {
-            "fastpath=True": (self.fastpath, "the fastpath and magazines slice"),
-            "magazines > 0": (self.magazines > 0, "the fastpath and magazines slice"),
-            "ring_capacity > 0": (
-                self.ring_capacity > 0, "the event ring and snapshots slice"),
-        }
-        for what, (asked, slice_) in later.items():
-            if asked:
-                raise NotImplementedError(
-                    f"{what} is not ported yet; it comes with {slice_}"
-                )
+        if self.ring_capacity > 0:
+            raise NotImplementedError(
+                "ring_capacity > 0 is not ported yet; it comes with the "
+                "event ring and snapshots slice"
+            )
+        if self.fastpath or self.magazines:
+            self.pool_config()  # fail fast on bad slab/magazine geometry
 
     @property
     def pages_per_shard(self) -> int:
@@ -113,7 +134,12 @@ class EngineConfig:
     def pool_config(self) -> PoolConfig:
         depth = (self.pages_per_shard - 1).bit_length()
         layout = BUNCH_PACKED if self.layout == "bunch-packed" else UNPACKED
-        return PoolConfig(TreeConfig(depth=depth, max_level=0, layout=layout), self.n_shards)
+        fp = (FastPathConfig(level=None, slab_level=self.fastpath_slab_level)
+              if self.fastpath else None)
+        mcfg = (MagazineConfig(mag_cap=self.magazines, refill_batch=self.magazine_refill)
+                if self.magazines else None)
+        return PoolConfig(TreeConfig(depth=depth, max_level=0, layout=layout),
+                          self.n_shards, fastpath=fp, magazines=mcfg)
 
     def lane_capacity_tokens(self) -> int:
         return self.max_lane_pages * self.page_tokens
@@ -139,7 +165,13 @@ class EngineState:
     overflowed: torch.Tensor  # bool[B]      retired by in-step alloc failure
     done_step: torch.Tensor   # int32[B]     retirement step, -1 live
     step_no: torch.Tensor     # int32 scalar global step counter
+    mag_pages: torch.Tensor   # int32[B, mag_cap] per-lane magazine, -1 empty
+    mag_depth: torch.Tensor   # int32[B]     magazine fill depth
     logits: Optional[torch.Tensor] = None  # float32[B, V] of the last step
+
+
+def _engine_mags(state: EngineState) -> MagazineState:
+    return MagazineState(pages=state.mag_pages, depth=state.mag_depth)
 
 
 def _zero_metrics(ecfg: EngineConfig, device) -> Metrics:
@@ -174,7 +206,21 @@ def init_engine_state(ecfg: EngineConfig, device="cuda") -> EngineState:
         overflowed=full((B,), False, torch.bool),
         done_step=full((B,), -1),
         step_no=full((), 0),
+        **_init_mag_fields(ecfg, device),
     )
+
+
+def _init_mag_fields(ecfg: EngineConfig, device) -> dict:
+    """One magazine per engine lane when magazines are on; zero-width
+    placeholders when off."""
+    B = ecfg.max_batch
+    if ecfg.magazines:
+        mags = pool_init_magazines(ecfg.pool_config(), B, device)
+        return {"mag_pages": mags.pages, "mag_depth": mags.depth}
+    return {
+        "mag_pages": torch.zeros((B, 0), dtype=I32, device=device),
+        "mag_depth": torch.zeros(B, dtype=I32, device=device),
+    }
 
 
 def global_tables(ecfg: EngineConfig, page_shard, page_off) -> torch.Tensor:
@@ -201,9 +247,18 @@ def engine_step(ecfg: EngineConfig, params: dict, state: EngineState) -> Metrics
     # -- 1. page allocation for lanes crossing a page boundary --------
     boundary = state.active & (state.ctx == state.n_pages * pt)
     need = boundary & (state.n_pages < MP)  # lane table full = overflow
-    trees, a_shard, a_off, ok, astats = nb_pool_alloc_pages(
-        pcfg, state.trees, need, state.seq_id, ecfg.max_rounds
-    )
+    mags = _engine_mags(state)
+    if ecfg.magazines:
+        # magazine-first claim; every lane owns its magazine, so the
+        # claim rank is zero and no sort runs in the step
+        trees, mags, a_shard, a_off, ok, astats = nb_pool_alloc_pages_mag(
+            pcfg, state.trees, mags, need, state.seq_id, ecfg.max_rounds,
+            mag_lane=bidx, mag_rank=torch.zeros(B, dtype=I32, device=dev),
+        )
+    else:
+        trees, a_shard, a_off, ok, astats = nb_pool_alloc_pages(
+            pcfg, state.trees, need, state.seq_id, ecfg.max_rounds
+        )
     pos = state.n_pages.clamp(0, MP - 1).long()
     state.page_shard[bidx, pos] = torch.where(ok, a_shard, state.page_shard[bidx, pos])
     state.page_off[bidx, pos] = torch.where(ok, a_off, state.page_off[bidx, pos])
@@ -235,15 +290,28 @@ def engine_step(ecfg: EngineConfig, params: dict, state: EngineState) -> Metrics
         finished = finished | (wrote & (nxt == ecfg.eos))
     retire = finished | overflow_now
     f_active = (retire[:, None] & (state.page_shard >= 0)).reshape(-1)
-    trees, _, fstats = nb_pool_free_pages(
-        pcfg, trees, state.page_shard.reshape(-1), state.page_off.reshape(-1),
-        f_active,
-    )
+    if ecfg.magazines:
+        # retired lanes stash their pages in their own magazine first;
+        # block tables fill prefix-wise with distinct owned pages, so the
+        # stash rank is the column index and the handles are known owned
+        f_lane = bidx[:, None].expand(B, MP).reshape(-1)
+        f_rank = torch.arange(MP, dtype=I32, device=dev)[None, :].expand(B, MP).reshape(-1)
+        trees, mags, _, fstats = nb_pool_free_pages_mag(
+            pcfg, trees, mags, state.page_shard.reshape(-1),
+            state.page_off.reshape(-1), f_active,
+            mag_lane=f_lane, mag_rank=f_rank, assume_owned=True,
+        )
+    else:
+        trees, _, fstats = nb_pool_free_pages(
+            pcfg, trees, state.page_shard.reshape(-1), state.page_off.reshape(-1),
+            f_active,
+        )
     retired = retire[:, None]
     state.page_shard = torch.where(retired, -1, state.page_shard).to(I32)
     state.page_off = torch.where(retired, -1, state.page_off).to(I32)
     was_active = state.active
     state.trees = trees
+    state.mag_pages, state.mag_depth = mags.pages, mags.depth
     state.n_pages = torch.where(retire, 0, n_pages).to(I32)
     state.active = state.active & ~retire
     state.overflowed = state.overflowed | overflow_now
@@ -254,6 +322,9 @@ def engine_step(ecfg: EngineConfig, params: dict, state: EngineState) -> Metrics
 
     # -- 4. telemetry --------------------------------------------------
     fp_shard = pool_free_units(pcfg, trees)
+    if ecfg.magazines:
+        # stashed pages are allocated in the tree's eyes but claimable
+        fp_shard = fp_shard + pool_mag_free_per_shard(pcfg, mags)
     m = _zero_metrics(ecfg, dev)
     m["alloc_pages"] = ok.sum(dtype=I32)
     m["freed_pages"] = fstats["freed"]
@@ -268,7 +339,14 @@ def engine_step(ecfg: EngineConfig, params: dict, state: EngineState) -> Metrics
     m["free_logical_rmws"] = fstats["free_logical_rmws"]
     m["free_pages"] = fp_shard.sum(dtype=I32)
     m["free_pages_shard"] = fp_shard
-    m["largest_run"] = pool_largest_run(pcfg, trees)
+    run = pool_largest_run(pcfg, trees)
+    if ecfg.magazines:
+        # a non-empty magazine can always serve a 1-run
+        run = torch.where(mag_total(mags) > 0, torch.clamp(run, min=1), run)
+        m["magazine_hits"] = astats["magazine_hits"]
+        m["magazine_spills"] = astats["magazine_spills"] + fstats["magazine_spills"]
+        m["magazine_refills"] = astats["magazine_refills"]
+    m["largest_run"] = run
     m["fastpath_hits"] = astats["fastpath_hits"]
     m["fastpath_spills"] = astats["fastpath_spills"]
     # a zero-capacity ring counts one (dropped) event per live step
@@ -298,32 +376,52 @@ def engine_run(ecfg: EngineConfig, params: dict, state: EngineState,
 # ---------------------------------------------------------------------------
 
 
-def admit_pages(ecfg: EngineConfig, trees, seq_id: int, need: int):
+def admit_pages(ecfg: EngineConfig, trees, mag_pages, mag_depth, seq_id: int, need: int):
     """All-or-nothing claim of `need` prompt pages for one sequence:
     every page is a leaf-unit lane homed by the sequence id; on partial
     failure the successes are rolled back by a second (free) pass, so a
     failed admission leaves the pool bit-identical.
 
-    Returns (trees, shards[MP], offs[MP], admitted, probe_overflows);
-    `overflows` comes from the alloc pass alone."""
+    Admission claims no magazine page, but with magazines an exhaustion
+    still spills every stashed page back and retries, so trees and
+    magazines change even when the admission fails: callers keep both.
+
+    Returns (trees, mag_pages, mag_depth, shards[MP], offs[MP], admitted,
+    probe_overflows, fastpath_hits, fastpath_spills, magazine_spills);
+    the counters come from the alloc pass alone (rolled-back claims
+    included)."""
     pcfg = ecfg.pool_config()
     MP = ecfg.max_lane_pages
     dev = trees.device
     active = torch.arange(MP, device=dev) < need
     lane_ids = torch.full((MP,), seq_id, dtype=I32, device=dev)
-    trees1, shard, off, ok, stats = nb_pool_alloc_pages(
-        pcfg, trees, active, lane_ids, ecfg.max_rounds
-    )
+    mag_spills = torch.zeros((), dtype=I32, device=dev)
+    if ecfg.magazines:
+        mags = MagazineState(pages=mag_pages, depth=mag_depth)
+        trees1, mags, shard, off, ok, stats = nb_pool_alloc_pages_mag(
+            pcfg, trees, mags, active, lane_ids, ecfg.max_rounds
+        )
+        mag_pages, mag_depth = mags.pages, mags.depth
+        mag_spills = stats["magazine_spills"]
+    else:
+        trees1, shard, off, ok, stats = nb_pool_alloc_pages(
+            pcfg, trees, active, lane_ids, ecfg.max_rounds
+        )
     admitted = ok.sum() == need
     trees_rb, _, _ = nb_pool_free_pages(pcfg, trees1, shard, off, ok & ~admitted)
     trees_out = torch.where(admitted, trees1, trees_rb)
     keep = admitted & ok
     return (
         trees_out,
+        mag_pages,
+        mag_depth,
         torch.where(keep, shard, -1).to(I32),
         torch.where(keep, off, -1).to(I32),
         admitted,
         stats["overflows"],
+        stats["fastpath_hits"],
+        stats["fastpath_spills"],
+        mag_spills,
     )
 
 
@@ -408,7 +506,9 @@ class JitServeEngine:
         layout: Optional[str] = None,
         max_rounds: int = 64,
         fastpath: bool = False,
+        fastpath_slab_level: int = 2,
         magazines: int = 0,
+        magazine_refill: int = 0,
         ring_capacity: int = 0,
     ) -> None:
         assert cfg.family in ("dense", "moe", "vlm", "audio"), (
@@ -429,7 +529,9 @@ class JitServeEngine:
             dtype=str(dtype).replace("torch.", ""),
             max_rounds=max_rounds,
             fastpath=fastpath,
+            fastpath_slab_level=fastpath_slab_level,
             magazines=magazines,
+            magazine_refill=magazine_refill,
             ring_capacity=ring_capacity,
         )
         self.device = torch.device(device)
@@ -484,10 +586,17 @@ class JitServeEngine:
                 self.stats["rejected"] += 1
                 continue
             need = self._pages_for(len(req.prompt) - 1)
-            trees, shards, offs, admitted, _ = admit_pages(
-                self.ecfg, self.state.trees, req.req_id, need
+            st = self.state
+            (st.trees, st.mag_pages, st.mag_depth, shards, offs, admitted,
+             _, fp_h, fp_s, mag_sp) = admit_pages(
+                self.ecfg, st.trees, st.mag_pages, st.mag_depth, req.req_id, need
             )
-            self.state.trees = trees
+            # admission syncs on `admitted` anyway
+            if self.ecfg.fastpath:
+                self.stats["admit_fastpath_hits"] += int(fp_h)
+                self.stats["admit_fastpath_spills"] += int(fp_s)
+            if self.ecfg.magazines:
+                self.stats["admit_magazine_spills"] += int(mag_sp)
             if not bool(admitted):
                 self.stats["queued_full"] += 1
                 break  # pool full: natural admission control
@@ -608,7 +717,10 @@ class JitServeEngine:
         return om.to_host(om.merge(base, acc))
 
     def device_free_pages(self) -> int:
-        return int(pool_free_units(self.ecfg.pool_config(), self.state.trees).sum())
+        free = int(pool_free_units(self.ecfg.pool_config(), self.state.trees).sum())
+        if self.ecfg.magazines:  # stashed pages are claimable
+            free += int(self.state.mag_depth.sum())
+        return free
 
     def device_block_table(self, seq_id: int) -> np.ndarray:
         """Global-page-id table of one running sequence (a host sync)."""

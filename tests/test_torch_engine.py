@@ -134,14 +134,15 @@ def test_matches_dense_greedy_decode(model):
     assert eng.completed[0].out_tokens == want
 
 
-@pytest.mark.parametrize("kw,slice_", [
-    ({"fastpath": True}, "fastpath"),
-    ({"magazines": 4}, "magazines"),
-    ({"ring_capacity": 64}, "event ring"),
+@pytest.mark.parametrize("kw,error,match", [
+    # the front ends are ported: their bad geometry is what raises now
+    ({"fastpath": True, "fastpath_slab_level": 9}, ValueError, "slab_level"),
+    ({"magazines": 4, "magazine_refill": -1}, ValueError, "magazine_refill"),
+    ({"ring_capacity": 64}, NotImplementedError, "event ring"),
 ])
-def test_config_refuses_later_slices(kw, slice_):
+def test_config_refuses_later_slices(kw, error, match):
     cfg = get_config("stablelm-3b").reduced()
-    with pytest.raises(NotImplementedError, match=slice_):
+    with pytest.raises(error, match=match):
         EngineConfig(arch=cfg, **GEOM, **kw)
 
 

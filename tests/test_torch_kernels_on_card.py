@@ -10,11 +10,13 @@ The three NBBS launchers of `csrc/nbbs_pool_step.cu` must be
 bit-identical to their plain versions in both tree layouts and both
 memory tiers: kernel A (the pooled step) to the lockstep router,
 overflow included, and its release half alone to `pool_free_round`,
-per-handle freed flags included; kernel 3 to `wavefront_step` and
+per-handle freed flags included, with and without the fastpath slab;
+the magazine path of `ops.nbbs_pool_wavefront_step` on CUDA tensors
+to the same path on CPU tensors; kernel 3 to `wavefront_step` and
 `wavefront_free`; kernel 4 to `wavefront_alloc`.  Kernel B (paged
 attention) must agree within fp32 2e-5 / bf16 3e-2 and give zeros on
 rows with no live page.  The engine's decode step must run with no host
-sync in both layouts.
+sync in both layouts, with and without the front ends.
 """
 
 import numpy as np
@@ -24,8 +26,15 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import concurrent as conc
 from repro_torch.core.concurrent import BUNCH_PACKED, UNPACKED, TreeConfig
-from repro_torch.core.pool import PoolConfig, pool_free_round, pool_wavefront_step
-from repro_torch.kernels import nbbs_alloc, paged_attention as pa
+from repro_torch.core.fastpath import FastPathConfig
+from repro_torch.core.magazine import MagazineConfig
+from repro_torch.core.pool import (
+    PoolConfig,
+    pool_free_round,
+    pool_init_magazines,
+    pool_wavefront_step,
+)
+from repro_torch.kernels import nbbs_alloc, ops, paged_attention as pa
 from repro_torch.models.transformer import init_params
 from repro_torch.serve.engine import Request
 from repro_torch.serve.jit_engine import JitServeEngine
@@ -38,12 +47,12 @@ LAYOUTS = {"unpacked": UNPACKED, "packed": BUNCH_PACKED}
 
 def _pool_churn(dev, pcfg, seed, steps=8, K=64, F=32):
     """Seeded mixed steps of kernel A against the lockstep router.
-    Returns the overflow count."""
+    Returns the overflow and fastpath-hit counts."""
     S, depth = pcfg.n_shards, pcfg.tree.depth
     rng = np.random.default_rng(seed)
     trees = pcfg.empty_trees(dev)
     N = pcfg.n_words
-    overflows = 0
+    overflows = hits = 0
     for _ in range(steps):
         levels = np.where(rng.random(K) < 0.6, depth,
                           rng.integers(max(depth - 3, 0), depth + 1, size=K))
@@ -67,8 +76,9 @@ def _pool_churn(dev, pcfg, seed, steps=8, K=64, F=32):
         for k in want[4]:
             assert int(want[4][k]) == int(got[4][k]), k
         overflows += int(got[4]["overflows"])
+        hits += int(got[4]["fastpath_hits"])
         trees = got[0]
-    return overflows
+    return overflows, hits
 
 
 @pytest.mark.parametrize("layout", ["unpacked", "packed"])
@@ -76,9 +86,75 @@ def _pool_churn(dev, pcfg, seed, steps=8, K=64, F=32):
 def test_pool_step_kernel_matches_plain(cuda_device, S, depth, layout):
     pcfg = PoolConfig(TreeConfig(depth=depth, layout=LAYOUTS[layout]), S)
     assert nbbs_alloc.tier(pcfg.tree, S, 64) == "shared"
-    overflows = _pool_churn(cuda_device, pcfg, S * 100 + depth)
+    overflows, _ = _pool_churn(cuda_device, pcfg, S * 100 + depth)
     if S > 1 and depth < 10:
         assert overflows > 0
+
+
+@pytest.mark.parametrize("layout", ["unpacked", "packed"])
+@pytest.mark.parametrize("S,depth,tier", [
+    (1, 6, "shared"), (4, 5, "shared"), (1, 12, "shared"), (4, 10, "shared"),
+    (1, 14, "device"), (2, 13, "device"),
+])
+def test_pool_step_slab_kernel_matches_plain(cuda_device, S, depth, tier, layout):
+    """Kernel A with the fastpath slab: routed release, slab claims in
+    every round, exhaustion into the buddy round, in both tiers."""
+    pcfg = PoolConfig(TreeConfig(depth=depth, layout=LAYOUTS[layout]), S,
+                      fastpath=FastPathConfig(slab_level=2))
+    assert nbbs_alloc.tier(pcfg.tree, S, 64, pcfg.fp_state_words) == tier
+    before = nbbs_alloc.tier_launches[tier]
+    _, hits = _pool_churn(cuda_device, pcfg, S * 100 + depth, steps=8 if tier == "shared" else 3)
+    assert hits > 0
+    assert nbbs_alloc.tier_launches[tier] > before
+
+
+@pytest.mark.parametrize("fastpath", [False, True])
+@pytest.mark.parametrize("layout", ["unpacked", "packed"])
+def test_magazine_path_on_card_matches_cpu(cuda_device, layout, fastpath):
+    """`ops.nbbs_pool_wavefront_step(mags=)` on CUDA tensors (stash and
+    claim ops, kernel A, the masked spill-back and retry launch) equals
+    its plain path on CPU tensors: trees, magazines, nodes, shards and
+    every stat slot, exhaustion spill-backs included."""
+    depth, S, L, K, F = 5, 2, 6, 24, 24
+    pcfg = PoolConfig(TreeConfig(depth=depth, layout=LAYOUTS[layout]), S,
+                      fastpath=FastPathConfig() if fastpath else None,
+                      magazines=MagazineConfig(mag_cap=3))
+    cpu = torch.device("cpu")
+    state = {d: (pcfg.empty_trees(d), pool_init_magazines(pcfg, L, d)) for d in (cpu, cuda_device)}
+    rng = np.random.default_rng(S + depth)
+    live, spills = [], 0
+    for step in range(12):
+        lv = np.where(rng.random(K) < 0.8, depth, rng.integers(1, depth + 1, K))
+        take = [live[i] for i in rng.permutation(len(live))[:F - 2]]
+        fn, fs = np.zeros(F, np.int64), np.zeros(F, np.int64)
+        if take:
+            fn[:len(take)], fs[:len(take)] = np.array(take).T
+        fn[len(take)], fs[len(take)] = fn[0], fs[0]          # a duplicate
+        fa = np.arange(F) <= len(take)
+        arrays = [fn, fs, fa, lv, rng.random(K) < 0.9, rng.integers(0, 1000, K),
+                  rng.integers(-1, L, F), rng.integers(-1, L, K)]
+        out = {}
+        for d, (trees, mags) in state.items():
+            a = [torch.from_numpy(np.asarray(x)).to(d) for x in arrays]
+            a = [t.to(torch.int32) if t.dtype == torch.int64 else t for t in a]
+            before = nbbs_alloc.launches
+            out[d] = ops.nbbs_pool_wavefront_step(
+                pcfg, trees, a[0], a[1], a[2], a[3], active=a[4], lane_ids=a[5],
+                mags=mags, free_mag_lane=a[6], alloc_mag_lane=a[7])
+            assert nbbs_alloc.launches == before + (2 if d.type == "cuda" else 0)
+        want, got = out[cpu], out[cuda_device]
+        for a, b, what in zip(want[:5], got[:5], ("trees", "mags", "nodes", "shard", "ok")):
+            for x, y in zip(a if what == "mags" else (a,), b if what == "mags" else (b,)):
+                assert torch.equal(x, y.cpu()), (step, what)
+        for k in want[5]:
+            assert int(want[5][k]) == int(got[5][k]), (step, k)
+        spills += int(got[5]["magazine_spills"])
+        state = {d: (out[d][0], out[d][1]) for d in out}
+        gone = set(zip(fn[fa].tolist(), fs[fa].tolist()))
+        live = [h for h in live if h not in gone]
+        live += [(int(n), int(s)) for n, s, o in zip(got[2].tolist(), got[3].tolist(),
+                                                     got[4].tolist()) if o]
+    assert spills > 0
 
 
 @pytest.mark.parametrize("layout", ["unpacked", "packed"])
@@ -199,16 +275,20 @@ def test_paged_attention_kernel_matches_plain(cuda_device, dtype, tol, Hq, Hkv, 
     assert (out[lens == 0] == 0).all()
 
 
-@pytest.mark.parametrize("layout", ["unpacked", "bunch-packed"])
-def test_engine_decode_has_no_host_sync(cuda_device, layout):
+@pytest.mark.parametrize("layout,frontends", [
+    ("unpacked", {}), ("bunch-packed", {}),
+    ("unpacked", {"fastpath": True}), ("bunch-packed", {"fastpath": True, "magazines": 2}),
+])
+def test_engine_decode_has_no_host_sync(cuda_device, layout, frontends):
     """A few decode chunks of the reduced model under
-    set_sync_debug_mode("error"), launching both kernels."""
+    set_sync_debug_mode("error"), launching both kernels, with and
+    without the fastpath and the magazines."""
     cfg = get_config("stablelm-3b").reduced()
     params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
                          device=cuda_device)
     eng = JitServeEngine(cfg, params, num_pages=64, page_tokens=4, max_batch=4,
                          max_lane_pages=8, max_out=8, device=cuda_device,
-                         n_shards=2, layout=layout)
+                         n_shards=2, layout=layout, **frontends)
     decode = eng.decode_steps
 
     def decode_without_sync(n):
@@ -228,3 +308,8 @@ def test_engine_decode_has_no_host_sync(cuda_device, layout):
     assert len(eng.completed) == 6
     assert nbbs_alloc.launches > a0 and pa.launches > b0
     assert eng.device_free_pages() == 64
+    tot = eng.stat_totals()
+    if frontends.get("fastpath"):
+        assert tot["fastpath_hits"] > 0
+    if frontends.get("magazines"):
+        assert tot["magazine_hits"] > 0
