@@ -51,7 +51,11 @@ Phases (any failure fails the run, exit code 1):
      that lanes are reused: `fastpath=True` at S=1 and S=4, and
      `fastpath=True, magazines=4` at S=4 packed (slab and magazine hits
      must be positive, kernel A launches exactly 2 (3 with magazines)
-     per decode step and admission); every decode chunk under
+     per decode step and admission), and S=1 with the event ring
+     (`ring_capacity=4096`: its schedule and counters equal the
+     ring-less S=1 run's, its snapshot validates and renders as a
+     Chrome trace, `chiprun_out/engine_ring.trace.json`); every decode
+     chunk under
      torch.cuda.set_sync_debug_mode("error"); the kernels' launch counts
      are read around this phase; then a
      `torch.profiler` window of 8 steady decode steps at S=1 (device busy
@@ -59,11 +63,24 @@ Phases (any failure fails the run, exit code 1):
   6. the same trace and geometry through the port's engine on the CPU at
      stablelm-3b's reduced config: with EOS off the schedule does not
      depend on tokens, so the retirement order and steps and every
-     `stat_totals()` counter must equal phase 5's, the packed run's too;
+     `stat_totals()` counter must equal phase 5's, the packed run's too,
+     and the ring run's drained events must equal the card's;
   7. full-width fp32 correctness: one request (prompt 6, 8 new tokens)
      against greedy decoding through the port's dense `prefill` over the
      growing sequence (no kernel on that path): logits within 1e-3 at
-     each step, tokens equal wherever the top-2 gap exceeds 1e-3.
+     each step, tokens equal wherever the top-2 gap exceeds 1e-3;
+  8. flash: with its launch count at 0, the differentiable
+     `ops.flash_attention` (kernel 5 forward) at full attention width in
+     bf16, B=1: stablelm-3b (32/32 heads, D=80, S=4096, causal),
+     phi3-medium-14b (40/10, D=128, S=4096, causal), gemma2-27b global
+     (32/16, D=128, S=8192, causal, softcap 50) and local (the same with
+     its 4096 window), stablelm-3b in fp32 at S=2048, and a gradient at
+     gemma2 local's widths cut to S=2048 and a 1024 window (the S x S
+     reference backward stays small, the window still bites); then each
+     row against its plain version on the card (bf16 2e-2, fp32 2e-5,
+     gradient 1e-5), its time, bound and `library_ms` (one
+     scaled_dot_product_attention call where SDPA computes the same
+     function: causal, no window, no softcap).
 
 Before the last line it prints the `nvidia-smi` name/power-limit line
 and one JSON line `{"kernels": [...]}`; the last line is
@@ -770,10 +787,12 @@ def make_trace(seed, n=64, vocab=256):
 # at once).  With all 64 requests at once each takes its own lane of 256
 # and no lane is used twice; the front-end runs let 16 arrive per chunk,
 # so later requests take the lanes of retired ones and their magazines.
+# The last run is the first with the event ring on.
+RING_RUN = (1, "unpacked", {"ring_capacity": 4096}, None)
 ENGINE_RUNS = (
     (1, "unpacked", {}, None), (4, "unpacked", {}, None), (4, "bunch-packed", {}, None),
     (1, "unpacked", {"fastpath": True}, 16), (4, "unpacked", {"fastpath": True}, 16),
-    (4, "bunch-packed", {"fastpath": True, "magazines": 4}, 16),
+    (4, "bunch-packed", {"fastpath": True, "magazines": 4}, 16), RING_RUN,
 )
 
 
@@ -906,6 +925,8 @@ def phase_engine(torch, dev, report, state):
             f"{tot['magazine_spills']}")
         rows.append(row)
         state[name] = (list(eng.retired_order), dict(eng.done_steps), tot)
+        if kw.get("ring_capacity"):
+            state["ring_events"] = check_ring_run(eng, state, row)
         del eng
     # nodes are identical on valid traces, so the schedule is too
     if state["S4-bunch-packed"][:2] != state["S4-unpacked"][:2]:
@@ -922,6 +943,39 @@ def phase_engine(torch, dev, report, state):
     del params
     torch.cuda.empty_cache()
     return rows
+
+
+def check_ring_run(eng, state, row):
+    """The ring run against the ring-less S=1 run: the same schedule and
+    counters (but `ring_dropped`: a zero-capacity ring drops every
+    event), no event dropped, a snapshot that validates and renders.
+    Returns the drained events."""
+    from repro_torch.obs.trace_export import save_trace, validate_snapshot
+
+    order, done, tot = state[run_name(1, "unpacked", {})]
+    ring_order, ring_done, ring_tot = state[run_name(*RING_RUN)]
+    if (ring_order, ring_done) != (order, done):
+        raise AssertionError("the ring run's schedule differs from the S=1 run's")
+    diff = {k: (v, ring_tot[k]) for k, v in tot.items()
+            if k != "ring_dropped" and ring_tot[k] != v}
+    if diff or ring_tot["ring_dropped"] != 0 or tot["ring_dropped"] != tot["ring_events"]:
+        raise AssertionError(f"the ring run's counters differ from the S=1 run's: {diff}")
+    snap = eng.snapshot()
+    validate_snapshot(snap)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    save_trace(snap, str(out / "engine_ring.trace.json"))
+    events = snap["events"]
+    if len(events) != ring_tot["ring_events"] or [e["step"] for e in events] != list(
+            range(ring_tot["steps"])):
+        raise AssertionError(f"{len(events)} events drained for "
+                             f"{ring_tot['ring_events']} pushed")
+    row["ring_events"] = len(events)
+    row["spans"] = len(snap["spans"])
+    log(f"[engine] {row['run']}: {len(events)} ring events drained, {len(snap['spans'])} "
+        f"host spans; schedule and counters equal to the ring-less S=1 run; the "
+        f"snapshot validates and renders (chiprun_out/engine_ring.trace.json)")
+    return events
 
 
 def phase_profile(torch, dev, report, state):
@@ -1016,6 +1070,8 @@ def phase_cpu_trace(torch, report, state):
             done_steps=eng.done_steps == done,
             stat_totals=eng.stat_totals() == tot,
         )
+        if kw.get("ring_capacity"):
+            same["ring_events"] = eng.snapshot()["events"] == state["ring_events"]
         log(f"[cpu trace] {name}: {eng.stats['steps']} steps on the CPU in "
             f"{wall:.1f} s; equal to the card: {same}")
         if not all(same.values()):
@@ -1072,6 +1128,146 @@ def phase_fp32(torch, dev, report):
     report["fp32"] = dict(max_abs_logit_diff=worst, tokens=tokens, near_ties=flips)
     del eng, params
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: flash attention (kernel 5) through ops.flash_attention
+# ---------------------------------------------------------------------------
+
+FLASH_S = 4096         # stablelm-3b and phi3-medium rows
+FLASH_S_GEMMA = 8192   # gemma2-27b's global and local rows
+FLASH_S_FP32 = 2048
+FLASH_GRAD_S, FLASH_GRAD_WINDOW = 2048, 1024
+
+
+def flash_rows(torch):
+    """(name, config, S, variant, dtype, SDPA computes it) per row."""
+    from repro_torch.configs import get_config
+
+    stablelm, phi3 = get_config("stablelm-3b"), get_config("phi3-medium-14b")
+    gemma = get_config("gemma2-27b")
+    cap = dict(causal=True, softcap=gemma.attn_softcap)
+    local = max(gemma.window_pattern)
+    return [
+        ("stablelm-3b", stablelm, FLASH_S, dict(causal=True), torch.bfloat16, True),
+        ("phi3-medium-14b", phi3, FLASH_S, dict(causal=True), torch.bfloat16, True),
+        ("gemma2-27b global", gemma, FLASH_S_GEMMA, cap, torch.bfloat16, False),
+        ("gemma2-27b local", gemma, FLASH_S_GEMMA, dict(cap, window=local),
+         torch.bfloat16, False),
+        ("stablelm-3b fp32", stablelm, FLASH_S_FP32, dict(causal=True), torch.float32, True),
+    ]
+
+
+def flash_inputs(torch, dev, cfg, S, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = ((1, cfg.n_heads, S, cfg.head_dim), (1, cfg.n_kv_heads, S, cfg.head_dim),
+              (1, cfg.n_kv_heads, S, cfg.head_dim))
+    return [torch.randn(sh, generator=g, device=dev, dtype=torch.float32).to(dtype)
+            for sh in shapes]
+
+
+def flash_pairs(S, Sk, causal, window):
+    """Unmasked (row, col) pairs: the work these inputs need."""
+    import numpy as np
+
+    i = np.arange(S, dtype=np.int64)
+    hi = np.minimum(i + 1, Sk) if causal else np.full(S, Sk)
+    lo = np.maximum(i - window + 1, 0) if window is not None else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def phase_flash(torch, dev, report, state):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    rows = flash_rows(torch)
+    inputs = [flash_inputs(torch, dev, cfg, S, dtype, seed)
+              for seed, (_, cfg, S, _, dtype, _) in enumerate(rows)]
+    gemma = rows[2][1]
+    gvar = dict(causal=True, softcap=gemma.attn_softcap, window=FLASH_GRAD_WINDOW)
+    gq, gk, gv = flash_inputs(torch, dev, gemma, FLASH_GRAD_S, torch.float32, 99)
+    weight = torch.randn(gq.shape, generator=torch.Generator(device=dev).manual_seed(7),
+                         device=dev)
+
+    # the path: the user's differentiable op, forward (kernel 5) and
+    # backward, with the launch count read around it
+    fa.launches = 0
+    outs = [ops.flash_attention(q, k, v, **var)
+            for (q, k, v), (_, _, _, var, _, _) in zip(inputs, rows)]
+    leaves = [t.clone().requires_grad_() for t in (gq, gk, gv)]
+    grads = torch.autograd.grad((ops.flash_attention(*leaves, **gvar) * weight).sum(), leaves)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    log(f"[flash] path: {len(rows)} rows and one gradient through ops.flash_attention, "
+        f"{launches} kernel 5 launches")
+    if launches != len(rows) + 1:
+        raise AssertionError(f"kernel 5 launched {launches} times, expected {len(rows) + 1}")
+    state["launches"] = {**state.get("launches", {}), "flash_attention": launches}
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out_rows = []
+    for (name, cfg, S, var, dtype, has_lib), (q, k, v), out in zip(rows, inputs, outs):
+        want = fa.flash_attention_plain(q, k, v, **var)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        err = (out.float() - want.float()).abs()
+        max_err = float(err.max())
+        ok = (out.shape == q.shape and bool(torch.isfinite(out).all())
+              and bool((err <= tol + tol * want.float().abs()).all()))
+        del want, err
+        ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, **var), reps=5, warmup=1)
+        plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **var),
+                           reps=2, warmup=1)
+        library_ms, library_note = None, "SDPA has no logit softcap or sliding window"
+        if has_lib:
+            gqa = cfg.n_heads != cfg.n_kv_heads
+            try:
+                kw = {"enable_gqa": True} if gqa else {}
+                lib_err = float((sdpa(q, k, v, is_causal=True, **kw).float()
+                                 - out.float()).abs().max())
+                library_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True, **kw),
+                                     reps=5, warmup=1)
+                library_note = (f"scaled_dot_product_attention(is_causal=True"
+                                f"{', enable_gqa=True' if gqa else ''}); max |diff| to "
+                                f"kernel 5 {lib_err:.3e}")
+            except TypeError as exc:   # a torch without enable_gqa
+                library_note = f"scaled_dot_product_attention refused: {exc}"
+        B, Hq, _, D = q.shape
+        pairs = flash_pairs(S, S, var.get("causal", True), var.get("window"))
+        ops_n = 4 * B * Hq * pairs * D
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        t_ops = ops_n / PEAK[str(dtype).replace("torch.", "")] * 1e3
+        t_bytes = nbytes / HBM_BPS * 1e3
+        row = dict(case=name, dtype=str(dtype).replace("torch.", ""), B=B, Hq=Hq,
+                   Hkv=k.shape[1], D=D, S=S, **{k_: v_ for k_, v_ in var.items()},
+                   max_abs_err=max_err, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library=library_note, pairs=pairs,
+                   operations=ops_n, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        log(f"[flash] {name} ({row['dtype']}, {Hq}/{row['Hkv']} heads, D={D}, S={S}, "
+            f"{var}): max_abs_err {max_err:.3e} (tol {tol}) kernel {ms:.3f} ms plain "
+            f"{plain_ms:.3f} ms library {library_ms} ms bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}, {ops_n:.3e} operations); {library_note}")
+        out_rows.append(row)
+        if not ok:
+            raise AssertionError(f"kernel 5 disagrees with its plain version: {name}")
+    del outs, inputs
+
+    plain_leaves = [t.clone().requires_grad_() for t in (gq, gk, gv)]
+    want = torch.autograd.grad(
+        (fa.flash_attention_plain(*plain_leaves, **gvar) * weight).sum(), plain_leaves)
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(grads, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    log(f"[flash] gradient at gemma2-27b local widths, S={FLASH_GRAD_S}, window "
+        f"{FLASH_GRAD_WINDOW}, fp32: max |grad diff| {grad_err:.3e} (tol 1e-5) "
+        f"against autograd through the plain version")
+    if not finite or grad_err > 1e-5:
+        raise AssertionError(f"flash gradient differs by {grad_err}")
+    report["flash"] = dict(rows=out_rows, launches=launches,
+                           gradient=dict(S=FLASH_GRAD_S, window=FLASH_GRAD_WINDOW,
+                                         max_abs_err=grad_err, tol=1e-5))
+    torch.cuda.empty_cache()
+    return out_rows
 
 
 # ---------------------------------------------------------------------------
@@ -1138,6 +1334,7 @@ def main() -> int:
         ("profile", lambda: phase_profile(torch, dev, report, state)),
         ("cpu_trace", lambda: phase_cpu_trace(torch, report, state)),
         ("fp32", lambda: phase_fp32(torch, dev, report)),
+        ("flash", lambda: phase_flash(torch, dev, report, state)),
     ]
     for pname, fn in phases:
         if pname == "cpu_trace" and run_name(*ENGINE_RUNS[-1]) not in state:
@@ -1166,6 +1363,7 @@ def main() -> int:
     # bench_wavefront's widest shape (depth 14, K=256), unpacked
     single = {r["kernel"]: r for r in report["single_tree"]["rows"]
               if r["layout"] == "unpacked" and r["depth"] == 14 and r["K"] == 256}
+    flash = report["flash"]["rows"][2]   # gemma2-27b global, bf16
     # no single PyTorch call computes a buddy-allocator step
     kernels = [
         {"name": "nbbs_pool_step", "route": "cuda",
@@ -1199,6 +1397,14 @@ def main() -> int:
          "max_abs_err": att["max_abs_err"], "ms": att["ms"],
          "plain_ms": att["plain_ms"], "bound_ms": att["bound_ms"],
          "bound_by": att["bound_by"], "library_ms": None},
+        # SDPA has no softcap: no single PyTorch call computes this row
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:47",
+         "launches": state["launches"]["flash_attention"],
+         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
+         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]},
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):

@@ -1,6 +1,6 @@
 """Public kernel ops of the port.
 
-Counterpart of `repro/kernels/ops.py:137-419`.  There is no
+Counterpart of `repro/kernels/ops.py:76-419`.  There is no
 `impl` switch: each op dispatches on the device of its tensors.  CPU
 tensors take the plain PyTorch version; CUDA tensors launch the
 hand-written kernel or raise.  No path falls back from the card to the
@@ -8,6 +8,8 @@ plain version.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -17,8 +19,45 @@ from repro_torch.core import pool as pool_mod
 from repro_torch.core.concurrent import I32, TreeConfig
 from repro_torch.core.pool import PoolConfig
 from repro_torch.kernels import nbbs_alloc
+from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: F401
+from repro_torch.kernels.ref import mha_reference
 from repro_torch.obs.schema import WAVEFRONT_ALLOC_SLOTS, WAVEFRONT_STEP_SLOTS, unpack_slots
+
+
+class _FlashAttention(torch.autograd.Function):
+    """`jax.custom_vjp` of `repro/kernels/ops.py:76-112`: the forward is
+    the kernel (on the card), the backward recomputes `mha_reference`
+    and returns its vector-Jacobian product.  Like JAX's, the backward
+    materialises the S x Sk logits; there is no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        return flash_attention_fwd(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, g):
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = mha_reference(*leaves, **ctx.opts)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None, None, None)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Differentiable attention. q: [B,Hq,S,D], k/v: [B,Hkv,Sk,D]."""
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)
 
 
 def _all_active(levels: torch.Tensor, active: torch.Tensor | None) -> torch.Tensor:

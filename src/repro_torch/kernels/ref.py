@@ -4,6 +4,13 @@
 the NBBS wavefront kernels' oracle is `core.concurrent.wavefront_alloc`,
 re-exported here.
 
+`mha_reference` is the counterpart of `repro/kernels/ref.py:28-68`, the
+dense attention that defines flash attention's semantics (and computes
+`ops.flash_attention`'s backward by autograd): fp32 logits, GQA by
+`repeat_interleave`, softcap before the mask, causal and window masks
+with rows and columns both counted from 0, the finite -1e30, and zeros
+for a fully masked row.
+
 `paged_attention_reference` is the counterpart of
 `repro/kernels/ref.py:71-117`, the same math: it masks with a finite
 -1e30, so a row with no live page gets uniform weights over the gathered
@@ -21,6 +28,43 @@ import torch
 from repro_torch.core.concurrent import wavefront_alloc as nbbs_wavefront_reference  # noqa: F401
 
 NEG_INF = -1e30
+
+
+def mha_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Dense reference attention. q: [B,Hq,S,D]; k,v: [B,Hkv,Sk,D]."""
+    B, Hq, S, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    kr = k.repeat_interleave(group, dim=1)
+    vr = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    rows = torch.arange(S, device=q.device)[:, None]
+    cols = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= cols > rows - window
+    s = torch.where(mask, s, NEG_INF)
+    # a fully masked row (a degenerate window) would softmax to uniform
+    # weights: it gives zeros instead
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(dim=-1, keepdim=True), p, 0.0)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vr.float())
+    return out.to(q.dtype)
 
 
 def paged_attention_reference(

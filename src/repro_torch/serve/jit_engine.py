@@ -3,9 +3,9 @@ host synchronisation.
 
 Counterpart of `repro/serve/jit_engine.py` with either tree layout
 (`layout="unpacked"` or `"bunch-packed"`), the fastpath slab
-(`fastpath=True`) and the per-lane magazines (`magazines=mag_cap`), and
-without the event ring.  Each `engine_step` does, on the device and
-without a host sync:
+(`fastpath=True`), the per-lane magazines (`magazines=mag_cap`) and the
+event ring (`ring_capacity=cap`).  Each `engine_step` does, on the
+device and without a host sync:
 
   1. boundary alloc: one page for every lane whose next token starts a
      page (`core.nbbs.nb_pool_alloc_pages`, one launch of the pooled
@@ -23,7 +23,8 @@ without a host sync:
      pages in its own magazine, ranked by column, its handles known
      owned (`nb_pool_free_pages_mag`);
   4. the schema's per-step metrics (`obs.schema.ENGINE_METRICS`); the
-     capacity gauges count stashed pages as free.
+     capacity gauges count stashed pages as free; one `EV_STEP` event
+     pushed to the ring (`obs/ring.py`) when a lane was live.
 
 Kernel A launches per decode step: 2 without magazines, 3 with them.
 
@@ -34,15 +35,16 @@ eagerly, so there is no compiled step to trace: `engine_step` and
 `engine_run` are plain functions.  The host syncs where the JAX shim
 does, at admission (free lanes, `admitted`) and at drain.
 
-The event ring is off in this slice; its per-step counters
-(`ring_events`, `ring_dropped`) still count what a zero-capacity ring
-counts, one event per step with a live lane, so `stat_totals()` equals
-the JAX engine's.
+`JitServeEngine` logs its host phases (admission bursts, decode chunks,
+drains) as wall-clock spans, and `snapshot()` drains the metric totals,
+the ring's surviving window and the spans into the format that
+`obs/trace_export.py` renders as a Perfetto trace.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -67,7 +69,9 @@ from repro_torch.core.pool import (
     pool_mag_free_per_shard,
 )
 from repro_torch.obs import metrics as om
+from repro_torch.obs import ring as oring
 from repro_torch.obs.schema import ENGINE_METRICS
+from repro_torch.obs.trace_export import SNAPSHOT_VERSION
 from repro_torch.serve.engine import Request
 from repro_torch.serve.paged_decode import init_pool, paged_decode_step, serve_prefill
 
@@ -98,6 +102,7 @@ class EngineConfig:
     # per-lane magazine capacity (core/magazine.py); 0 disables them
     magazines: int = 0
     magazine_refill: int = 0
+    # event ring capacity (obs/ring.py); 0 keeps only the count
     ring_capacity: int = 0
 
     def __post_init__(self):
@@ -115,11 +120,6 @@ class EngineConfig:
             raise ValueError("magazines/magazine_refill must be >= 0")
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
-        if self.ring_capacity > 0:
-            raise NotImplementedError(
-                "ring_capacity > 0 is not ported yet; it comes with the "
-                "event ring and snapshots slice"
-            )
         if self.fastpath or self.magazines:
             self.pool_config()  # fail fast on bad slab/magazine geometry
 
@@ -165,6 +165,7 @@ class EngineState:
     overflowed: torch.Tensor  # bool[B]      retired by in-step alloc failure
     done_step: torch.Tensor   # int32[B]     retirement step, -1 live
     step_no: torch.Tensor     # int32 scalar global step counter
+    ring: oring.EventRing     # event ring (capacity 0 = counts only)
     mag_pages: torch.Tensor   # int32[B, mag_cap] per-lane magazine, -1 empty
     mag_depth: torch.Tensor   # int32[B]     magazine fill depth
     logits: Optional[torch.Tensor] = None  # float32[B, V] of the last step
@@ -206,6 +207,7 @@ def init_engine_state(ecfg: EngineConfig, device="cuda") -> EngineState:
         overflowed=full((B,), False, torch.bool),
         done_step=full((B,), -1),
         step_no=full((), 0),
+        ring=oring.make_ring(ecfg.ring_capacity, device),
         **_init_mag_fields(ecfg, device),
     )
 
@@ -320,15 +322,33 @@ def engine_step(ecfg: EngineConfig, params: dict, state: EngineState) -> Metrics
     ).to(I32)
     state.ctx, state.n_out, state.last_tok = ctx, n_out, last_tok
 
-    # -- 4. telemetry --------------------------------------------------
+    # -- 4. telemetry: named metrics + one ring event per live step ---
     fp_shard = pool_free_units(pcfg, trees)
     if ecfg.magazines:
         # stashed pages are allocated in the tree's eyes but claimable
         fp_shard = fp_shard + pool_mag_free_per_shard(pcfg, mags)
+    free_total = fp_shard.sum(dtype=I32)
+    won = ok.sum(dtype=I32)
+    n_over = overflow_now.sum(dtype=I32)
+    ring0 = state.ring
+    state.ring = oring.push(
+        ring0,
+        oring.event(
+            oring.EV_STEP,
+            step=state.step_no,
+            lanes_won=won,
+            lanes_overflowed=n_over,
+            lanes_spilled=astats["fastpath_spills"],
+            frees_merged=fstats["freed"],
+            rounds=astats["rounds"],
+            free_pages=free_total,
+        ),
+        mask=was_active.any(),
+    )
     m = _zero_metrics(ecfg, dev)
-    m["alloc_pages"] = ok.sum(dtype=I32)
+    m["alloc_pages"] = won
     m["freed_pages"] = fstats["freed"]
-    m["overflow_lanes"] = overflow_now.sum(dtype=I32)
+    m["overflow_lanes"] = n_over
     m["probe_overflows"] = astats["overflows"]
     m["retired"] = retire.sum(dtype=I32)
     m["active_lanes"] = state.active.sum(dtype=I32)
@@ -337,7 +357,7 @@ def engine_step(ecfg: EngineConfig, params: dict, state: EngineState) -> Metrics
     m["logical_rmws"] = astats["logical_rmws"]
     m["free_merged_writes"] = fstats["free_merged_writes"]
     m["free_logical_rmws"] = fstats["free_logical_rmws"]
-    m["free_pages"] = fp_shard.sum(dtype=I32)
+    m["free_pages"] = free_total
     m["free_pages_shard"] = fp_shard
     run = pool_largest_run(pcfg, trees)
     if ecfg.magazines:
@@ -349,10 +369,9 @@ def engine_step(ecfg: EngineConfig, params: dict, state: EngineState) -> Metrics
     m["largest_run"] = run
     m["fastpath_hits"] = astats["fastpath_hits"]
     m["fastpath_spills"] = astats["fastpath_spills"]
-    # a zero-capacity ring counts one (dropped) event per live step
-    live = was_active.any().to(I32)
-    m["ring_events"] = live
-    m["ring_dropped"] = live
+    # ring counters as per-step deltas (merge sums them back up)
+    m["ring_events"] = state.ring.count - ring0.count
+    m["ring_dropped"] = oring.dropped(state.ring) - oring.dropped(ring0)
     m = om.observe(m, "alloc_rounds_hist", astats["rounds"])
     home = home_shard(pcfg, state.seq_id)
     dist = (a_shard - home) % pcfg.n_shards
@@ -553,6 +572,20 @@ class JitServeEngine:
             "admit_magazine_spills": 0,
         }
         self.acc = _zero_metrics(self.ecfg, self.device)
+        # host-phase span log for the trace exporter: wall-clock windows
+        # of admissions, decode chunks and drains, relative to
+        # construction
+        self.spans: List[Dict] = []
+        self._t_origin = time.perf_counter()
+
+    def _now(self) -> float:
+        return time.perf_counter() - self._t_origin
+
+    def _record_span(self, phase: str, t0: float, step0: int, **extra):
+        self.spans.append({
+            "phase": phase, "t0": t0, "t1": self._now(),
+            "step0": step0, "step1": self.stats["steps"], **extra,
+        })
 
     # -- admission ----------------------------------------------------
     def _pages_for(self, n_tokens: int) -> int:
@@ -576,6 +609,8 @@ class JitServeEngine:
         return [int(i) for i in np.nonzero(seq < 0)[0]]
 
     def _admit(self) -> None:
+        t0, step0 = self._now(), self.stats["steps"]
+        admitted0 = self.stats["admitted"]
         free = self._free_lanes()
         while self.waiting and free:
             req = self.waiting[0]
@@ -603,6 +638,9 @@ class JitServeEngine:
             self.waiting.pop(0)
             self._insert(free.pop(0), req, shards, offs, need)
             self.stats["admitted"] += 1
+        n_adm = self.stats["admitted"] - admitted0
+        if n_adm:
+            self._record_span("admit", t0, step0, admitted=n_adm)
 
     def _insert(self, lane: int, req: Request, shards, offs, n_pages) -> None:
         S = len(req.prompt)
@@ -631,15 +669,19 @@ class JitServeEngine:
     # -- the device loop ----------------------------------------------
     def decode_steps(self, n: int) -> None:
         """Run n decode iterations with no host sync.  Eager PyTorch has
-        no scan to dispatch, so a chunk is `engine_run`'s plain loop."""
+        no scan to dispatch, so a chunk is `engine_run`'s plain loop (the
+        span records no `fused` flag, which JAX's does)."""
+        t0, step0 = self._now(), self.stats["steps"]
         self.acc = om.merge(
             self.acc, engine_run(self.ecfg, self.params, self.state, n)
         )
         self.stats["steps"] += n
+        self._record_span("decode", t0, step0, n=n)
 
     def _drain(self) -> List[int]:
         """Collect retired lanes (one host sync), clear them, and return
         the drained seq ids in retirement-step order."""
+        t0, step0 = self._now(), self.stats["steps"]
         st = self.state
         seq, act, n_out, out_toks, over, done = (
             t.cpu().numpy() for t in (
@@ -666,6 +708,7 @@ class JitServeEngine:
             mask = np.zeros((self.ecfg.max_batch,), bool)
             mask[list(lanes)] = True
             clear_lanes(self.ecfg, self.state, torch.from_numpy(mask).to(self.device))
+            self._record_span("drain", t0, step0, drained=len(drained))
         return drained
 
     # -- ServeEngine-compatible surface --------------------------------
@@ -715,6 +758,31 @@ class JitServeEngine:
             acc.setdefault(k, torch.zeros((), dtype=I32, device=self.device))
         base = {k: host.get(k, torch.zeros_like(v)) for k, v in acc.items()}
         return om.to_host(om.merge(base, acc))
+
+    def snapshot(self) -> Dict[str, object]:
+        """Drain the telemetry plane into the exporter's snapshot format
+        (obs/trace_export.py): schema-checked metric totals, the event
+        ring's surviving window and the host-phase span log.  A
+        deliberate host sync: call it at run boundaries."""
+        ecfg = self.ecfg
+        return {
+            "obs_schema": SNAPSHOT_VERSION,
+            "source": "jit_engine",
+            "config": {
+                "num_pages": ecfg.num_pages,
+                "page_tokens": ecfg.page_tokens,
+                "max_batch": ecfg.max_batch,
+                "max_lane_pages": ecfg.max_lane_pages,
+                "n_shards": ecfg.n_shards,
+                "layout": ecfg.layout,
+                "fastpath": ecfg.fastpath,
+                "magazines": ecfg.magazines,
+                "ring_capacity": ecfg.ring_capacity,
+            },
+            "metrics": self.stat_totals(),
+            "events": oring.drain(self.state.ring),
+            "spans": list(self.spans),
+        }
 
     def device_free_pages(self) -> int:
         free = int(pool_free_units(self.ecfg.pool_config(), self.state.trees).sum())

@@ -138,7 +138,7 @@ def test_matches_dense_greedy_decode(model):
     # the front ends are ported: their bad geometry is what raises now
     ({"fastpath": True, "fastpath_slab_level": 9}, ValueError, "slab_level"),
     ({"magazines": 4, "magazine_refill": -1}, ValueError, "magazine_refill"),
-    ({"ring_capacity": 64}, NotImplementedError, "event ring"),
+    ({"ring_capacity": -1}, ValueError, "ring_capacity"),
 ])
 def test_config_refuses_later_slices(kw, error, match):
     cfg = get_config("stablelm-3b").reduced()

@@ -15,8 +15,13 @@ the magazine path of `ops.nbbs_pool_wavefront_step` on CUDA tensors
 to the same path on CPU tensors; kernel 3 to `wavefront_step` and
 `wavefront_free`; kernel 4 to `wavefront_alloc`.  Kernel B (paged
 attention) must agree within fp32 2e-5 / bf16 3e-2 and give zeros on
-rows with no live page.  The engine's decode step must run with no host
-sync in both layouts, with and without the front ends.
+rows with no live page.  Kernel 5 (flash attention) must agree with
+`flash_attention_plain` within fp32 2e-5 / bf16 2e-2 over the sweep of
+tests/test_kernels.py (shapes, variants, block sizes), at D=80 and
+D=128 and with a ragged Sk, and the gradient of `ops.flash_attention`
+must equal autograd through the plain version.  The engine's decode
+step must run with no host sync in both layouts, with and without the
+front ends and the event ring.
 """
 
 import numpy as np
@@ -34,8 +39,10 @@ from repro_torch.core.pool import (
     pool_init_magazines,
     pool_wavefront_step,
 )
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import nbbs_alloc, ops, paged_attention as pa
 from repro_torch.models.transformer import init_params
+from repro_torch.obs.trace_export import validate_snapshot
 from repro_torch.serve.engine import Request
 from repro_torch.serve.jit_engine import JitServeEngine
 from torch_card import cuda_device  # noqa: F401  (fixture)
@@ -275,14 +282,106 @@ def test_paged_attention_kernel_matches_plain(cuda_device, dtype, tol, Hq, Hkv, 
     assert (out[lens == 0] == 0).all()
 
 
+def _flash_inputs(dev, dtype, B, Hq, Hkv, S, D, Sk=None, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    Sk = S if Sk is None else Sk
+    return [torch.randn(shape, generator=g).to(dev, dtype)
+            for shape in ((B, Hq, S, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))]
+
+
+def _flash_check(dev, dtype, B, Hq, Hkv, S, D, Sk=None, block=64, **variant):
+    q, k, v = _flash_inputs(dev, dtype, B, Hq, Hkv, S, D, Sk, seed=S + D)
+    before = fa.launches
+    out = fa.flash_attention_fwd(q, k, v, block_q=block, block_k=block, **variant)
+    assert fa.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, **variant)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,D,Hq,Hkv", [(128, 32, 4, 4), (256, 64, 8, 2), (192, 16, 2, 1)])
+def test_flash_kernel_shapes_match_plain(cuda_device, S, D, Hq, Hkv, dtype):
+    _flash_check(cuda_device, dtype, 2, Hq, Hkv, S, D)
+
+
+@pytest.mark.parametrize("variant", [
+    dict(causal=False), dict(causal=True, window=64), dict(causal=True, softcap=30.0),
+    dict(causal=True, window=96, softcap=50.0), dict(causal=True, window=0),
+], ids=["noncausal", "window64", "softcap30", "window96-softcap50", "window0"])
+def test_flash_kernel_variants_match_plain(cuda_device, variant):
+    out = _flash_check(cuda_device, torch.float32, 1, 4, 2, 256, 32, **variant)
+    if variant.get("window") == 0:
+        assert not out.any()
+
+
+@pytest.mark.parametrize("block", [32, 128])
+def test_flash_kernel_block_sizes_match_plain(cuda_device, block):
+    _flash_check(cuda_device, torch.float32, 1, 2, 2, 256, 32, block=block)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D,variant", [
+    (8, 8, 80, dict(causal=True)),                             # stablelm-3b
+    (8, 2, 128, dict(causal=True)),                            # phi3-medium
+    (8, 4, 128, dict(causal=True, window=100, softcap=50.0)),  # gemma2 local
+    (4, 2, 256, dict(causal=False, softcap=30.0)),             # D at its limit
+], ids=["d80", "d128-gqa4", "d128-window-softcap", "d256"])
+def test_flash_kernel_model_widths_match_plain(cuda_device, dtype, Hq, Hkv, D, variant):
+    """The repo's head widths, S=320 (a partial q tile of the kernel)."""
+    _flash_check(cuda_device, dtype, 1, Hq, Hkv, 320, D, **variant)
+
+
+@pytest.mark.parametrize("S,Sk,variant", [
+    (100, 200, dict(causal=True)), (200, 100, dict(causal=True, window=30)),
+    (60, 132, dict(causal=False, softcap=20.0)),
+])
+def test_flash_kernel_ragged_kv_matches_plain(cuda_device, S, Sk, variant):
+    """Sk and S off the kernel's tiles (blocks of 4 pass the JAX check)."""
+    _flash_check(cuda_device, torch.float32, 2, 4, 2, S, 80, Sk=Sk, block=4, **variant)
+
+
+def test_flash_kernel_refuses_unsupported(cuda_device):
+    q, k, v = _flash_inputs(cuda_device, torch.float16, 1, 2, 2, 64, 32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention_fwd(q, k, v)
+    q, k, v = _flash_inputs(cuda_device, torch.float32, 1, 2, 2, 64, 12)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_attention_fwd(q, k, v)
+
+
+@pytest.mark.parametrize("variant", [
+    dict(causal=True), dict(causal=True, window=48, softcap=30.0),
+], ids=["causal", "window-softcap"])
+def test_flash_gradient_on_card_matches_plain(cuda_device, variant):
+    """`ops.flash_attention` launches the kernel forward and its backward
+    recomputes the reference: its gradients equal autograd through the
+    plain version (atol 1e-5, tests/test_kernels.py's)."""
+    q, k, v = _flash_inputs(cuda_device, torch.float32, 1, 4, 2, 256, 80)
+    w = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    grads = []
+    for fn in (ops.flash_attention, fa.flash_attention_plain):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        before = fa.launches
+        out = fn(*leaves, **variant)
+        assert fa.launches == before + (fn is ops.flash_attention)
+        grads.append(torch.autograd.grad((out * w).sum(), leaves))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("layout,frontends", [
     ("unpacked", {}), ("bunch-packed", {}),
     ("unpacked", {"fastpath": True}), ("bunch-packed", {"fastpath": True, "magazines": 2}),
+    ("unpacked", {"ring_capacity": 16}), ("bunch-packed", {"ring_capacity": 4}),
 ])
 def test_engine_decode_has_no_host_sync(cuda_device, layout, frontends):
     """A few decode chunks of the reduced model under
     set_sync_debug_mode("error"), launching both kernels, with and
-    without the fastpath and the magazines."""
+    without the fastpath, the magazines and the event ring."""
     cfg = get_config("stablelm-3b").reduced()
     params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
                          device=cuda_device)
@@ -313,3 +412,9 @@ def test_engine_decode_has_no_host_sync(cuda_device, layout, frontends):
         assert tot["fastpath_hits"] > 0
     if frontends.get("magazines"):
         assert tot["magazine_hits"] > 0
+    cap = frontends.get("ring_capacity", 0)
+    if cap:
+        snap = eng.snapshot()
+        validate_snapshot(snap)
+        assert len(snap["events"]) == min(tot["ring_events"], cap)
+        assert tot["ring_dropped"] == max(tot["ring_events"] - cap, 0)
