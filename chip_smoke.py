@@ -77,8 +77,11 @@ Phases (any failure fails the run, exit code 1):
      its 4096 window), stablelm-3b in fp32 at S=2048, and a gradient at
      gemma2 local's widths cut to S=2048 and a 1024 window (the S x S
      reference backward stays small, the window still bites); then each
-     row against its plain version on the card (bf16 2e-2, fp32 2e-5,
-     gradient 1e-5), its time, bound and `library_ms` (one
+     row against its plain version on the card (bf16 within one
+     rounding of the output, 2^-7 |want| + 1e-4; fp32 2e-5; gradient
+     1e-5: the backward recomputes the reference, so the gradient checks
+     the autograd wiring, not the kernel), its time, bound and
+     `library_ms` (one
      scaled_dot_product_attention call where SDPA computes the same
      function: causal, no window, no softcap).
 
@@ -1166,6 +1169,22 @@ def flash_inputs(torch, dev, cfg, S, dtype, seed):
             for sh in shapes]
 
 
+# Kernel 5 against its plain version.  Both compute fp32 values that
+# agree to about 1e-6 and round them once to the output's type, so a
+# bf16 output may differ by one bf16 ulp, at most 2^-7 of the value.  A
+# fixed 2e-2 would not do at S = 4096-8192: outputs there are about 0.02,
+# and a kernel that dropped one kv tile would still pass.
+FLASH_TOL = {"bfloat16": "2^-7 |want| + 1e-4", "float32": "2e-5 + 2e-5 |want|"}
+
+
+def flash_limit(torch, want):
+    """Per-element limit on |kernel - plain| for a plain output `want`."""
+    w = want.float().abs()
+    if want.dtype == torch.bfloat16:
+        return w * 2.0 ** -7 + 1e-4
+    return w * 2e-5 + 2e-5
+
+
 def flash_pairs(S, Sk, causal, window):
     """Unmasked (row, col) pairs: the work these inputs need."""
     import numpy as np
@@ -1209,12 +1228,13 @@ def phase_flash(torch, dev, report, state):
     for (name, cfg, S, var, dtype, has_lib), (q, k, v), out in zip(rows, inputs, outs):
         want = fa.flash_attention_plain(q, k, v, **var)
         torch.cuda.synchronize()
-        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
         err = (out.float() - want.float()).abs()
         max_err = float(err.max())
-        ok = (out.shape == q.shape and bool(torch.isfinite(out).all())
-              and bool((err <= tol + tol * want.float().abs()).all()))
-        del want, err
+        limit = flash_limit(torch, want)
+        slack = float((err / limit).max())   # <= 1 passes
+        ok = (out.shape == q.shape and bool(torch.isfinite(out).all()) and slack <= 1.0)
+        tol = FLASH_TOL[str(dtype).replace("torch.", "")]
+        del want, err, limit
         ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, **var), reps=5, warmup=1)
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **var),
                            reps=2, warmup=1)
@@ -1240,12 +1260,14 @@ def phase_flash(torch, dev, report, state):
         t_bytes = nbytes / HBM_BPS * 1e3
         row = dict(case=name, dtype=str(dtype).replace("torch.", ""), B=B, Hq=Hq,
                    Hkv=k.shape[1], D=D, S=S, **{k_: v_ for k_, v_ in var.items()},
-                   max_abs_err=max_err, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
+                   max_abs_err=max_err, tol=tol, err_over_limit=slack, ok=ok, ms=ms,
+                   plain_ms=plain_ms,
                    library_ms=library_ms, library=library_note, pairs=pairs,
                    operations=ops_n, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes")
         log(f"[flash] {name} ({row['dtype']}, {Hq}/{row['Hkv']} heads, D={D}, S={S}, "
-            f"{var}): max_abs_err {max_err:.3e} (tol {tol}) kernel {ms:.3f} ms plain "
+            f"{var}): max_abs_err {max_err:.3e}, at most {slack:.3f} of its limit "
+            f"({tol}) kernel {ms:.3f} ms plain "
             f"{plain_ms:.3f} ms library {library_ms} ms bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}, {ops_n:.3e} operations); {library_note}")
         out_rows.append(row)
@@ -1253,6 +1275,8 @@ def phase_flash(torch, dev, report, state):
             raise AssertionError(f"kernel 5 disagrees with its plain version: {name}")
     del outs, inputs
 
+    # The backward recomputes the reference, so this checks the autograd
+    # wiring (argument order, the options' Nones), not kernel 5.
     plain_leaves = [t.clone().requires_grad_() for t in (gq, gk, gv)]
     want = torch.autograd.grad(
         (fa.flash_attention_plain(*plain_leaves, **gvar) * weight).sum(), plain_leaves)

@@ -29,7 +29,9 @@ class _FlashAttention(torch.autograd.Function):
     """`jax.custom_vjp` of `repro/kernels/ops.py:76-112`: the forward is
     the kernel (on the card), the backward recomputes `mha_reference`
     and returns its vector-Jacobian product.  Like JAX's, the backward
-    materialises the S x Sk logits; there is no backward kernel."""
+    materialises the S x Sk logits; there is no backward kernel.  The
+    kernel's output never enters the gradient: a gradient test checks
+    this wiring, not the kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale):

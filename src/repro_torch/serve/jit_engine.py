@@ -331,20 +331,25 @@ def engine_step(ecfg: EngineConfig, params: dict, state: EngineState) -> Metrics
     won = ok.sum(dtype=I32)
     n_over = overflow_now.sum(dtype=I32)
     ring0 = state.ring
-    state.ring = oring.push(
-        ring0,
-        oring.event(
-            oring.EV_STEP,
-            step=state.step_no,
-            lanes_won=won,
-            lanes_overflowed=n_over,
-            lanes_spilled=astats["fastpath_spills"],
-            frees_merged=fstats["freed"],
-            rounds=astats["rounds"],
-            free_pages=free_total,
-        ),
-        mask=was_active.any(),
-    )
+    live = was_active.any()
+    if oring.capacity(ring0) == 0:
+        # counts only: eager PyTorch would build the event row for nothing
+        state.ring = oring.EventRing(ring0.buf, ring0.count + live.to(I32))
+    else:
+        state.ring = oring.push(
+            ring0,
+            oring.event(
+                oring.EV_STEP,
+                step=state.step_no,
+                lanes_won=won,
+                lanes_overflowed=n_over,
+                lanes_spilled=astats["fastpath_spills"],
+                frees_merged=fstats["freed"],
+                rounds=astats["rounds"],
+                free_pages=free_total,
+            ),
+            mask=live,
+        )
     m = _zero_metrics(ecfg, dev)
     m["alloc_pages"] = won
     m["freed_pages"] = fstats["freed"]
