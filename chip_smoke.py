@@ -83,7 +83,11 @@ Phases (any failure fails the run, exit code 1):
      the autograd wiring, not the kernel), its time, bound and
      `library_ms` (one
      scaled_dot_product_attention call where SDPA computes the same
-     function: causal, no window, no softcap).
+     function: causal, no window, no softcap), its TFLOP/s of useful
+     work and its ratios to the bound and to SDPA; and each body's
+     ptxas registers and spills and its HGMMA / HMMA count from
+     `cuobjdump -sass` (every bf16 body must hold HGMMA: wgmma on the
+     tensor cores).
 
 Before the last line it prints the `nvidia-smi` name/power-limit line
 and one JSON line `{"kernels": [...]}`; the last line is
@@ -98,6 +102,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -119,6 +124,61 @@ PROMPT_BUCKETS = (2, 4, 8, 16, 32)
 
 def log(*a):
     print(*a, flush=True)
+
+
+def entry_label(mangled):
+    """A kernel's template instance, from its mangled name."""
+    m = re.search(r"nbbs_step_kernelILb(\d)ELb(\d)ELb(\d)E", mangled)
+    if m:
+        return "<{}, {}, {}>".format("packed" if m[1] == "1" else "unpacked",
+                                     "shared" if m[2] == "1" else "device",
+                                     "slab" if m[3] == "1" else "no slab")
+    m = re.search(r"flash_fwd_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)E", mangled)
+    if m:
+        return f"<bf16, DP={m[1]}, BK={m[2]}, NST={m[3]}>"
+    m = re.search(r"flash_fwd_kernelIfLi(\d+)ELi(\d+)E", mangled)
+    if m:
+        return f"<fp32, RPT={m[1]}, NJ4={m[2]}>"
+    m = re.search(r"paged_decode_kernelI(f|13__nv_bfloat16)E", mangled)
+    if m:
+        return "<fp32>" if m[1] == "f" else "<bf16>"
+    return ""
+
+
+def ptxas_entries(text):
+    """{label: registers, spill bytes and stack} of each kernel in one
+    source's `nvcc -Xptxas -v` log."""
+    out, entry = {}, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entry = entry_label(line)
+            out[entry] = dict(registers=None, spill_stores=None, spill_loads=None,
+                              stack=None)
+        elif entry in out and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[entry].update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif entry in out and "Used" in line and "registers" in line:
+            out[entry]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+    return out
+
+
+def sass_counts(lib, opcodes=("HGMMA", "HMMA")):
+    """{kernel label: {opcode: count}} in a built library's SASS, from
+    `cuobjdump -sass`: which kernels issue tensor-core instructions."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, entry = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            entry = entry_label(line) or line.split("Function :")[1].strip()
+            counts[entry] = dict.fromkeys(opcodes, 0)
+        elif entry is not None:
+            for op in opcodes:
+                if re.search(rf"\b{op}\.", line):
+                    counts[entry][op] += 1
+    return counts
 
 
 def cuda_ms(torch, fn, reps=20, warmup=3):
@@ -1223,6 +1283,27 @@ def phase_flash(torch, dev, report, state):
         raise AssertionError(f"kernel 5 launched {launches} times, expected {len(rows) + 1}")
     state["launches"] = {**state.get("launches", {}), "flash_attention": launches}
 
+    # the build: registers and spills of each body (ptxas), and the
+    # tensor-core instructions in its SASS
+    from repro_torch.kernels import _build
+
+    ptxas = report.get("ptxas", {}).get("flash_attention", {})
+    sass = sass_counts(_build.BUILD_DIR / "flash_attention.so")
+    for entry, ops_ in sass.items():
+        info = ptxas.get(entry, {})
+        smem = ""
+        m = re.search(r"DP=(\d+), BK=(\d+), NST=(\d+)", entry)
+        if m:   # the bf16 launcher's dynamic shared memory: Q and the K/V ring
+            panels, bk, nst = -(-int(m[1]) // 64), int(m[2]), int(m[3])
+            smem = (f", {1024 + panels * 128 * (2 * 64 + 2 * nst * bk)} bytes dynamic "
+                    "shared memory")
+        log(f"[flash] SASS {entry}: {ops_['HGMMA']} HGMMA, {ops_['HMMA']} HMMA; ptxas "
+            f"{info.get('registers', 'not rebuilt')} registers, spill stores / loads "
+            f"{info.get('spill_stores')} / {info.get('spill_loads')} bytes{smem}")
+    bf16_bodies = {e: c for e, c in sass.items() if e.startswith("<bf16")}
+    if not bf16_bodies or any(c["HGMMA"] == 0 for c in bf16_bodies.values()):
+        raise AssertionError(f"a bf16 body of kernel 5 has no wgmma (HGMMA) instruction: {sass}")
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out_rows = []
     for (name, cfg, S, var, dtype, has_lib), (q, k, v), out in zip(rows, inputs, outs):
@@ -1258,18 +1339,24 @@ def phase_flash(torch, dev, report, state):
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         t_ops = ops_n / PEAK[str(dtype).replace("torch.", "")] * 1e3
         t_bytes = nbytes / HBM_BPS * 1e3
+        bound_ms = max(t_ops, t_bytes)
         row = dict(case=name, dtype=str(dtype).replace("torch.", ""), B=B, Hq=Hq,
                    Hkv=k.shape[1], D=D, S=S, **{k_: v_ for k_, v_ in var.items()},
                    max_abs_err=max_err, tol=tol, err_over_limit=slack, ok=ok, ms=ms,
                    plain_ms=plain_ms,
                    library_ms=library_ms, library=library_note, pairs=pairs,
-                   operations=ops_n, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+                   operations=ops_n, bytes=nbytes, bound_ms=bound_ms,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   tflops=ops_n / ms / 1e9, over_bound=ms / bound_ms,
+                   over_library=None if library_ms is None else ms / library_ms)
+        over_lib = ("no library call" if library_ms is None
+                    else f"{row['over_library']:.2f}x library")
         log(f"[flash] {name} ({row['dtype']}, {Hq}/{row['Hkv']} heads, D={D}, S={S}, "
             f"{var}): max_abs_err {max_err:.3e}, at most {slack:.3f} of its limit "
             f"({tol}) kernel {ms:.3f} ms plain "
-            f"{plain_ms:.3f} ms library {library_ms} ms bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}, {ops_n:.3e} operations); {library_note}")
+            f"{plain_ms:.3f} ms library {library_ms} ms bound {bound_ms:.4f} ms "
+            f"({row['bound_by']}, {ops_n:.3e} operations); {row['tflops']:.1f} TFLOP/s "
+            f"useful, {row['over_bound']:.2f}x bound, {over_lib}; {library_note}")
         out_rows.append(row)
         if not ok:
             raise AssertionError(f"kernel 5 disagrees with its plain version: {name}")
@@ -1287,7 +1374,7 @@ def phase_flash(torch, dev, report, state):
         f"against autograd through the plain version")
     if not finite or grad_err > 1e-5:
         raise AssertionError(f"flash gradient differs by {grad_err}")
-    report["flash"] = dict(rows=out_rows, launches=launches,
+    report["flash"] = dict(rows=out_rows, launches=launches, sass=sass,
                            gradient=dict(S=FLASH_GRAD_S, window=FLASH_GRAD_WINDOW,
                                          max_abs_err=grad_err, tol=1e-5))
     torch.cuda.empty_cache()
@@ -1331,17 +1418,12 @@ def main() -> int:
     logs = _build.build_all()
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] {sorted(logs)} in {report['build_s']:.1f} s")
-    for src, text in logs.items():
-        entry = ""   # the NBBS kernel's template instance, by its mangled name
-        for line in text.splitlines():
-            if "Compiling entry function" in line:
-                m = re.search(r"nbbs_step_kernelILb(\d)ELb(\d)ELb(\d)E", line)
-                entry = "" if m is None else "<{}, {}, {}>".format(
-                    "packed" if m[1] == "1" else "unpacked",
-                    "shared" if m[2] == "1" else "device",
-                    "slab" if m[3] == "1" else "no slab")
-            elif "registers" in line or "spill" in line:
-                log(f"[ptxas {src}{entry}] {line.strip()}")
+    report["ptxas"] = {src: ptxas_entries(text) for src, text in logs.items()}
+    for src, entries in report["ptxas"].items():
+        for entry, info in entries.items():
+            log(f"[ptxas {src}{entry}] {info['registers']} registers, "
+                f"{info['spill_stores']} / {info['spill_loads']} bytes spill "
+                f"stores / loads, {info['stack']} bytes stack")
     log("[build] nbbs_pool_step.so: nbbs_pool_step, nbbs_wavefront_step and "
         "nbbs_wavefront_alloc each launch nbbs_step_kernel<layout, tier, slab> by "
         "the tree layout, the memory tier and the fastpath")

@@ -8,46 +8,72 @@
 // col <= row and window col > row - window (rows and cols both counted
 // from 0), the finite -1e30 for a masked logit, an fp32 online softmax
 // whose state stays neutral while a row has seen nothing live, and 0 for
-// a row whose denominator is 0.  Inputs float32 or bfloat16, arithmetic
-// fp32 on the CUDA cores (as the Pallas kernel casts to fp32), output in
-// q's type (bf16 rounded to nearest even by __float2bfloat16).
+// a row whose denominator is 0.  Output in q's type, rounded once (bf16
+// to nearest even by __float2bfloat16).
 //
-// Layout.  One block per (q tile of BQ = 64 rows, q head, batch); a loop
-// over kv tiles of BK = 32 columns inside the block takes the place of
-// the TPU's sequential fourth grid axis, and the running max, denominator
-// and output accumulator live in registers instead of VMEM scratch.  The
-// loop visits only live kv tiles (the Pallas kernel's block skipping):
-// with `causal` it ends at the tile holding column row0 + BQ - 1, with a
-// window it starts at the tile holding row0 - window + 1, so a sliding
-// window costs O(S * window), not O(S^2).  Causal q tiles are launched
-// heaviest first.
+// Both bodies: one block per (q tile, q head, batch) loops over the live
+// kv tiles, which takes the place of the TPU's sequential fourth grid
+// axis; the running max, denominator and output accumulator live in
+// registers instead of VMEM scratch.  With `causal` the loop ends at the
+// tile holding column row0 + BQ - 1, with a window it starts at the tile
+// holding row0 - window + 1 (the Pallas kernel's block skipping), so a
+// sliding window costs O(S * window), not O(S^2).  Causal q tiles are
+// launched heaviest first.
 //
-// Threads.  Eight threads share a row group: thread (tr, tx) holds rows
-// tr + G * i (G row groups, i < RPT) and, for the logits, columns tx + 8j
-// of the kv tile, for the output, float4 chunks tx + 8j of the head
-// dimension.  Q, K and V tiles are staged in shared memory as fp32 (rows
-// padded to D + 4 so that the float4 reads of one warp hit distinct
-// banks), the probabilities of a tile as well; the row max and sum go
-// through three warp shuffles.  D is any multiple of 8 up to 256:
-// D <= 64 and D <= 128 take 4 rows a thread and 128 threads, D <= 256
-// takes 2 rows a thread and 256 threads.  Shared memory (fp32): 64 x
-// (D+4) for Q, 32 x (D+4) for K, 32 x D for V, 64 x 40 for P: 76 KB at
-// D = 128, so set above 48 KB with cudaFuncSetAttribute.
+// bfloat16: the tensor cores.  What bounds it on an H100 is operations:
+// 4 * B * Hq * pairs * D multiply-adds counted as two (pairs = the
+// unmasked (row, col) pairs) against 989 TFLOP/s; gemma2-27b's global
+// layer (S = 8192, causal) is 5.5e11 operations, 0.56 ms.  A block holds
+// 128 q rows: two consumer warpgroups of 64 rows each and a producer
+// warpgroup, one thread of which issues every load (the others exit; the
+// warpgroup gives its registers to the consumers by setmaxnreg).  Q comes
+// once, K and V tiles of 64 rows (32 at D > 192) through a ring of up to
+// three stages, all by TMA with the 128-byte swizzle, each stage with a
+// full and an empty mbarrier; TMA's zero fill past the last row and past
+// D gives the ragged S and Sk edges and the contraction's padding to 16.
+// S = Q K^T is a wgmma with both operands K-major in shared memory, O +=
+// P V a wgmma with P from registers and V read MN-major (transposed), all
+// into fp32 accumulators.  The softmax runs in the accumulator's register
+// layout (a row is spread over 4 threads: two shuffles), in base 2 with
+// log2(e) folded into the scale; the softcap uses the fp32-accurate
+// tanhf.  Only tiles that cross the causal diagonal, the window's edge or
+// Sk test each element; the others take a body with no mask, and a tile
+// that is masked wholly for one warpgroup's rows is not computed there.
+// Each warpgroup issues S of tile t + 1 and P V of tile t before it runs
+// the softmax of tile t + 1, so the tensor cores work while it does.
+// The grid runs the q heads of one q tile next to each other, so the Hq
+// / Hkv heads that share a kv head read its tiles from L2.  What is left
+// on the table: the two consumer warpgroups are not scheduled in turns
+// (ping-pong), and P V is done twice (below).
 //
-// What bounds it on an H100: operations.  4 * B * Hq * pairs * D
-// multiply-adds counted as two (pairs = the unmasked (row, col) pairs)
-// against 989 TFLOP/s for bf16 on the tensor cores; gemma2-27b's global
-// layer (S = 8192, causal) is 5.5e11 operations, 0.56 ms.  This kernel
-// runs them on the CUDA cores in fp32 (67 TFLOP/s at best, 8.2 ms), with
-// two blocks of 4 warps resident per SM at D = 128 (shared memory allows
-// no third), no overlap of the K/V loads with the arithmetic, and the diagonal
-// tiles of a causal mask computed in full.  Tensor cores (mma.sync or
-// wgmma on bf16 tiles), TMA loads into a ring of K/V tiles, and more
-// warps per SM are what it leaves on the table.
+// Numerics.  Q K^T from bf16 inputs is exact in its products, as the
+// fp32 version was.  P is not rounded once to bf16 (a relative error of
+// up to 2^-9 on each p, enough over S = 4096 to put some outputs two
+// bf16 ulps and more from the plain version): it goes to the tensor
+// cores as a pair P_hi = bf16(P), P_lo = bf16(P - P_hi), both products
+// into the same fp32 accumulator, about 2^-17 relative.  That costs a
+// second P V product, 1.5x the minimal tensor-core work, and keeps every
+// output within one rounding of the plain version.
+//
+// float32: the CUDA cores (fp32 FMAs, as the Pallas kernel casts to
+// fp32).  Eight threads share a row group: thread (tr, tx) holds rows tr
+// + G * i (G row groups, i < RPT) and, for the logits, columns tx + 8j
+// of a 32-column kv tile, for the output, float4 chunks tx + 8j of the
+// head dimension.  Q, K and V tiles are staged in shared memory as fp32
+// (rows padded to D + 4), the probabilities of a tile as well; the row
+// max and sum go through three warp shuffles.  D <= 64 and D <= 128 take
+// 4 rows a thread and 128 threads, D <= 256 takes 2 rows a thread and
+// 256 threads.  It runs at about a quarter of the 67 TFLOP/s of the fp32
+// CUDA cores: no overlap of loads and arithmetic, two blocks per SM at
+// D = 128.  A 3xTF32 split on the tensor cores is its redesign.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
+
 
 namespace {
 
@@ -59,20 +85,8 @@ constexpr float NEG_INF = -1e30f;
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  p[0] = __float2bfloat16(v.x);
-  p[1] = __float2bfloat16(v.y);
-  p[2] = __float2bfloat16(v.z);
-  p[3] = __float2bfloat16(v.w);
 }
 
 // Copy `rows` rows of D elements (starting at global row r0 of an
@@ -273,21 +287,579 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int Hq, int Hkv, int S, int Sk, int D, float scale,
-             float softcap, int has_softcap, int causal, int has_window,
-             int window, cudaStream_t st) {
-  if (D <= 64)
-    return launch<T, 4, 2>(q, k, v, out, B, Hq, Hkv, S, Sk, D, scale,
-                           softcap, has_softcap, causal, has_window, window,
-                           st);
-  if (D <= 128)
-    return launch<T, 4, 4>(q, k, v, out, B, Hq, Hkv, S, Sk, D, scale,
-                           softcap, has_softcap, causal, has_window, window,
-                           st);
-  return launch<T, 2, 8>(q, k, v, out, B, Hq, Hkv, S, Sk, D, scale, softcap,
-                         has_softcap, causal, has_window, window, st);
+// ---------------------------------------------------------------------------
+// bfloat16 body: wgmma on the tensor cores, K and V through a TMA ring
+
+constexpr int WG_CONSUMERS = 2;                       // warpgroups of 64 q rows
+constexpr int WG_BQ = 64 * WG_CONSUMERS;              // q rows per block
+constexpr int WG_THREADS = 128 * (WG_CONSUMERS + 1);  // + the producer's
+constexpr int PANEL_BYTES = 64 * 128;  // 64 rows of a 128-byte panel
+constexpr int RING = 3;                // stages of the K/V ring, at most
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// One box (64 columns, the map's box rows) of a [heads, rows, D] bf16
+// tensor into shared memory, 128-byte swizzled, counted on `bar`; zeros
+// past rows and D.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int col, int row, int head,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(row), "r"(head)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand at shared address
+// `addr`: 8-row groups 1024 bytes apart (both offset fields; the other
+// one is unused by every instruction here).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d (64 x 64, fp32) = / += A (smem, K-major) * B (smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 32, fp32) = / += A (smem, K-major) * B (smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// o[J0 .. J0 + 8) (64 x 64, fp32) += A (registers) * B (smem, MN-major)
+template <int J0, int NO>
+__device__ __forceinline__ void wgmma_rs_n64(float (&o)[NO][4], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(o[J0 + 0][0]), "+f"(o[J0 + 0][1]), "+f"(o[J0 + 0][2]), "+f"(o[J0 + 0][3]),
+        "+f"(o[J0 + 1][0]), "+f"(o[J0 + 1][1]), "+f"(o[J0 + 1][2]), "+f"(o[J0 + 1][3]),
+        "+f"(o[J0 + 2][0]), "+f"(o[J0 + 2][1]), "+f"(o[J0 + 2][2]), "+f"(o[J0 + 2][3]),
+        "+f"(o[J0 + 3][0]), "+f"(o[J0 + 3][1]), "+f"(o[J0 + 3][2]), "+f"(o[J0 + 3][3]),
+        "+f"(o[J0 + 4][0]), "+f"(o[J0 + 4][1]), "+f"(o[J0 + 4][2]), "+f"(o[J0 + 4][3]),
+        "+f"(o[J0 + 5][0]), "+f"(o[J0 + 5][1]), "+f"(o[J0 + 5][2]), "+f"(o[J0 + 5][3]),
+        "+f"(o[J0 + 6][0]), "+f"(o[J0 + 6][1]), "+f"(o[J0 + 6][2]), "+f"(o[J0 + 6][3]),
+        "+f"(o[J0 + 7][0]), "+f"(o[J0 + 7][1]), "+f"(o[J0 + 7][2]), "+f"(o[J0 + 7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// o[J0 .. J0 + 4) (64 x 32, fp32) += A (registers) * B (smem, MN-major)
+template <int J0, int NO>
+__device__ __forceinline__ void wgmma_rs_n32(float (&o)[NO][4], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(o[J0 + 0][0]), "+f"(o[J0 + 0][1]), "+f"(o[J0 + 0][2]), "+f"(o[J0 + 0][3]),
+        "+f"(o[J0 + 1][0]), "+f"(o[J0 + 1][1]), "+f"(o[J0 + 1][2]), "+f"(o[J0 + 1][3]),
+        "+f"(o[J0 + 2][0]), "+f"(o[J0 + 2][1]), "+f"(o[J0 + 2][2]), "+f"(o[J0 + 2][3]),
+        "+f"(o[J0 + 3][0]), "+f"(o[J0 + 3][1]), "+f"(o[J0 + 3][2]), "+f"(o[J0 + 3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// o[J0 .. J0 + 2) (64 x 16, fp32) += A (registers) * B (smem, MN-major)
+template <int J0, int NO>
+__device__ __forceinline__ void wgmma_rs_n16(float (&o)[NO][4], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(o[J0 + 0][0]), "+f"(o[J0 + 0][1]), "+f"(o[J0 + 0][2]), "+f"(o[J0 + 0][3]),
+        "+f"(o[J0 + 1][0]), "+f"(o[J0 + 1][1]), "+f"(o[J0 + 1][2]), "+f"(o[J0 + 1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Split (x, y) into bf16 pairs hi = bf16(x, y) and lo = bf16(residuals).
+__device__ __forceinline__ void split_hi_lo(float x, float y, uint32_t& hi,
+                                            uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x - __low2float(h),
+                                         y - __high2float(h)));
+}
+
+struct TcArgs {
+  int S, Sk, D;
+  float scale2;     // scale * log2(e) (no softcap)
+  float scale;      // the logits' scale
+  float inv_cap;    // 1 / softcap
+  float cap2;       // softcap * log2(e)
+  int has_softcap, causal, has_window, window;
+};
+
+// Logits of one kv tile to base-2 log-probabilities, the row max, the
+// rescale of the running state and the probabilities, in place.  Rows
+// ra and ra + 8 of the thread; `s[j][e]` is column col0 + 8j + 2tq + (e
+// & 1) of row ra (e < 2) or ra + 8 (e >= 2).  MASK: the tile crosses
+// the causal diagonal, the window's edge or Sk.
+template <bool MASK, int NS>
+__device__ __forceinline__ void tc_softmax(float (&s)[NS][4], float (&m)[2],
+                                           float (&l)[2], float (&alpha)[2],
+                                           const TcArgs& a, int ra, int col0,
+                                           int tq) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float y;
+      if (a.has_softcap)
+        y = a.cap2 * tanhf(s[j][e] * a.scale * a.inv_cap);
+      else
+        y = s[j][e] * a.scale2;
+      if (MASK) {
+        const int row = ra + (e >> 1) * 8;
+        const int col = col0 + 8 * j + 2 * tq + (e & 1);
+        bool live = col < a.Sk;
+        if (a.causal) live = live && col <= row;
+        if (a.has_window) live = live && col > row - a.window;
+        y = live ? y : NEG_INF;
+      }
+      s[j][e] = y;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_cur = fmaxf(m[i], mx);
+    // MASK: a row may have seen nothing live yet; its state stays neutral
+    const bool dead = MASK && m_cur == NEG_INF;
+    alpha[i] = dead ? 1.f : exp2f(m[i] - m_cur);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 2 * i; e < 2 * i + 2; ++e) {
+        const float p = dead ? 0.f : exp2f(s[j][e] - m_cur);
+        s[j][e] = p;
+        sum += p;
+      }
+    l[i] = l[i] * alpha[i] + sum;  // this thread's columns; summed at the end
+    m[i] = m_cur;
+  }
+}
+
+// O[:, 64p .. 64p + width) += P V for one 16-row k step of V (panel p
+// of the stage at `v`, MN-major); width 64, or the tail of D.
+template <int P, int DP, int KPANEL, int NO>
+__device__ __forceinline__ void pv_panel(float (&o)[NO][4], const uint32_t (&a)[4],
+                                         uint32_t v, int kk) {
+  const uint64_t d = wg_desc(v + P * KPANEL + kk * 16 * 128);
+  constexpr int W = DP - 64 * P < 64 ? DP - 64 * P : 64;
+  if constexpr (W == 64) wgmma_rs_n64<8 * P>(o, a, d);
+  else if constexpr (W == 32) wgmma_rs_n32<8 * P>(o, a, d);
+  else wgmma_rs_n16<8 * P>(o, a, d);
+}
+
+template <int DP, int KPANEL, int NO, int... Ps>
+__device__ __forceinline__ void pv_all(float (&o)[NO][4], const uint32_t (&a)[4],
+                                       uint32_t v, int kk,
+                                       std::integer_sequence<int, Ps...>) {
+  (pv_panel<Ps, DP, KPANEL>(o, a, v, kk), ...);
+}
+
+// S (64 x BK) = Q K^T over D: NKS k16 steps, Q and K K-major
+template <int BK, int NKS>
+__device__ __forceinline__ void qk(float (&s)[BK / 8][4], uint32_t q_s,
+                                   uint32_t k_s) {
+#pragma unroll
+  for (int ks = 0; ks < NKS; ++ks) {
+    const int q_off = (ks / 4) * PANEL_BYTES + (ks % 4) * 32;
+    const int k_off = (ks / 4) * (BK * 128) + (ks % 4) * 32;
+    if constexpr (BK == 64)
+      wgmma_ss_n64(s, wg_desc(q_s + q_off), wg_desc(k_s + k_off), ks > 0);
+    else
+      wgmma_ss_n32(s, wg_desc(q_s + q_off), wg_desc(k_s + k_off), ks > 0);
+  }
+}
+
+// DP: D rounded up to 16 (64, 80, 96, 128, 192, 256; 32 for D <= 32);
+// BK: kv tile rows; NST: stages of the K/V ring.
+template <int DP, int BK, int NST>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
+                      const __grid_constant__ CUtensorMap tmk,
+                      const __grid_constant__ CUtensorMap tmv,
+                      __nv_bfloat16* __restrict__ out, int Hq, int Hkv,
+                      TcArgs a) {
+  constexpr int NPAN = (DP + 63) / 64;       // 64-column panels
+  constexpr int QTILE = NPAN * PANEL_BYTES;  // 64 rows of Q
+  constexpr int KPANEL = BK * 128;           // BK rows of one panel
+  constexpr int KTILE = NPAN * KPANEL;       // BK rows of K or V
+  constexpr int NKS = DP / 16;               // k16 steps over D
+  constexpr int NO = DP / 8;                 // n8 tiles of the output
+  constexpr int NS = BK / 8;                 // n8 tiles of the logits
+  extern __shared__ unsigned char wg_smem[];
+  __shared__ __align__(8) uint64_t full[NST], empty[NST], qbar;
+  // panels of the 128-byte swizzle start on 1024-byte boundaries
+  const uint32_t raw = smem_u32(wg_smem);
+  unsigned char* Qs = wg_smem + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* Ks = Qs + WG_CONSUMERS * QTILE;  // [NST][KTILE]
+  unsigned char* Vs = Ks + NST * KTILE;           // [NST][KTILE]
+
+  const int S = a.S, Sk = a.Sk;
+  // heads of one q tile next to each other; causal: heaviest tile first
+  const int nq = gridDim.x / Hq;
+  const int h = blockIdx.x % Hq;
+  const int qi = blockIdx.x / Hq;
+  const int qt = a.causal ? nq - 1 - qi : qi;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int row0 = qt * WG_BQ;
+  // live kv tiles of this q tile: [t0, t1)
+  const int end = a.causal ? min(Sk, row0 + WG_BQ) : Sk;
+  const int begin = a.has_window ? max(0, row0 - a.window + 1) : 0;
+  const int t0 = begin / BK, t1 = (end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < NST; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 128 * WG_CONSUMERS);
+    }
+    mbar_init(&qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // warp-uniform to the compiler, so that the roles' paths do not count
+  // as divergent (it would serialize the wgmma instructions)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == WG_CONSUMERS) {
+    // producer: one thread keeps the ring full; its warpgroup gives its
+    // registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 128 * WG_CONSUMERS) {
+      mbar_expect_tx(&qbar, WG_CONSUMERS * QTILE);
+      for (int w = 0; w < WG_CONSUMERS; ++w)
+        for (int p = 0; p < NPAN; ++p)
+          tma_load(Qs + w * QTILE + p * PANEL_BYTES, &tmq, 64 * p,
+                   row0 + 64 * w, b * Hq + h, &qbar);
+      for (int t = t0, i = 0; t < t1; ++t, ++i) {
+        const int st = i % NST;
+        mbar_wait(&empty[st], ((i / NST) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * KTILE);
+        for (int p = 0; p < NPAN; ++p) {
+          tma_load(Ks + st * KTILE + p * KPANEL, &tmk, 64 * p, t * BK,
+                   b * Hkv + hk, &full[st]);
+          tma_load(Vs + st * KTILE + p * KPANEL, &tmv, 64 * p, t * BK,
+                   b * Hkv + hk, &full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns q rows wrow0 .. wrow0 + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int tid = threadIdx.x % 128, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wrow0 = row0 + 64 * wg;
+  const int ra = wrow0 + warp * 16 + g;  // rows ra and ra + 8 of the thread
+  const uint32_t q_s = smem_u32(Qs + wg * QTILE);
+  // this warpgroup's live tiles [w0, w1) within the block's; the others
+  // are wholly masked for its rows and change nothing
+  const int w1 = max(t0, min(t1, a.causal ? (min(Sk, wrow0 + 64) + BK - 1) / BK : t1));
+  const int w0 = min(w1, max(t0, a.has_window ? max(0, wrow0 - a.window + 1) / BK : t0));
+
+  float o[NO][4], s[NS][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float alpha[2];
+  uint32_t ph[BK / 16][4], pl[BK / 16][4];  // P of the tile in flight
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  // online softmax of tile t in s; per element masks only where the
+  // tile crosses the causal diagonal, the window's edge or Sk
+  auto softmax = [&](int t) {
+    const int col0 = t * BK;
+    const bool edge = col0 + BK > Sk || (a.causal && col0 + BK - 1 > wrow0) ||
+                      (a.has_window && col0 <= wrow0 + 63 - a.window);
+    if (edge)
+      tc_softmax<true>(s, m, l, alpha, a, ra, col0, tq);
+    else
+      tc_softmax<false>(s, m, l, alpha, a, ra, col0, tq);
+  };
+  // O *= alpha, and P as bf16 pairs hi and lo for the P V products
+  auto rescale_split = [&]() {
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      split_hi_lo(s[2 * kk][0], s[2 * kk][1], ph[kk][0], pl[kk][0]);
+      split_hi_lo(s[2 * kk][2], s[2 * kk][3], ph[kk][1], pl[kk][1]);
+      split_hi_lo(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[kk][2], pl[kk][2]);
+      split_hi_lo(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[kk][3], pl[kk][3]);
+    }
+  };
+  // O += P_hi V + P_lo V, P from registers, V (stage at v_s) MN-major
+  auto pv = [&](uint32_t v_s) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pv_all<DP, KPANEL>(o, ph[kk], v_s, kk, std::make_integer_sequence<int, NPAN>{});
+      pv_all<DP, KPANEL>(o, pl[kk], v_s, kk, std::make_integer_sequence<int, NPAN>{});
+    }
+  };
+
+  mbar_wait(&qbar, 0);
+  int i = 0;  // position in the ring
+  for (int t = t0; t < w0; ++t, ++i) {
+    mbar_wait(&full[i % NST], (i / NST) & 1);
+    mbar_arrive(&empty[i % NST]);
+  }
+  if (w0 < w1) {
+    mbar_wait(&full[i % NST], (i / NST) & 1);
+    wg_fence();
+    qk<BK, NKS>(s, q_s, smem_u32(Ks + (i % NST) * KTILE));
+    wg_commit();
+    wg_wait_all();
+    softmax(w0);
+    rescale_split();
+    // S of tile t + 1 and P V of tile t on the tensor cores while the
+    // softmax of tile t + 1 runs on the CUDA cores
+    for (int t = w0; t + 1 < w1; ++t, ++i) {
+      const int st = i % NST, sn = (i + 1) % NST;
+      mbar_wait(&full[sn], ((i + 1) / NST) & 1);
+      wg_fence();
+      qk<BK, NKS>(s, q_s, smem_u32(Ks + sn * KTILE));
+      wg_commit();
+      pv(smem_u32(Vs + st * KTILE));
+      wg_commit();
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // S
+      softmax(t + 1);
+      wg_wait_all();  // P V of tile t: its stage is free
+      mbar_arrive(&empty[st]);
+      rescale_split();
+    }
+    wg_fence();
+    pv(smem_u32(Vs + (i % NST) * KTILE));
+    wg_commit();
+    wg_wait_all();
+    mbar_arrive(&empty[i % NST]);
+    ++i;
+  }
+  for (int t = w1; t < t1; ++t, ++i) {
+    mbar_wait(&full[i % NST], (i / NST) & 1);
+    mbar_arrive(&empty[i % NST]);
+  }
+
+  // the row sums over the 4 threads of a row, then one rounding
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const int D = a.D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = ra + 8 * r;
+    if (row >= S) continue;
+    const float norm = l[r] == 0.f ? 1.f : l[r];
+    __nv_bfloat16* orow = out + (((size_t)b * Hq + h) * S + row) * D;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int col = 8 * j + 2 * tq;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(o[j][2 * r] / norm, o[j][2 * r + 1] / norm);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, a driver API, through the runtime's entry point
+// (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [heads, rows, D] bf16 in boxes of 64 columns x box_rows rows with the
+// 128-byte swizzle; a box reads zeros past rows and D
+bool tensor_map(CUtensorMap* map, const void* ptr, int heads, int rows,
+                int D, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int B, int Hq, int Hkv, const TcArgs& a, cudaStream_t st) {
+  constexpr int BK = DP > 192 ? 32 : 64;  // D > 192: the registers of O
+  constexpr int QTILE = (DP + 63) / 64 * PANEL_BYTES;
+  constexpr int KTILE = (DP + 63) / 64 * BK * 128;
+  // 227 KB a block, less the alignment slack and the barriers
+  constexpr int FIT = (232448 - 1024 - 64 - WG_CONSUMERS * QTILE) / (2 * KTILE);
+  constexpr int NST = FIT < RING ? FIT : RING;
+  const size_t smem = 1024 + (size_t)WG_CONSUMERS * QTILE + (size_t)2 * NST * KTILE;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, B * Hq, a.S, a.D, 64) ||
+      !tensor_map(&tk, k, B * Hkv, a.Sk, a.D, BK) ||
+      !tensor_map(&tv, v, B * Hkv, a.Sk, a.D, BK))
+    return (int)cudaErrorInvalidValue;
+  auto kern = flash_fwd_bf16_kernel<DP, BK, NST>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(((a.S + WG_BQ - 1) / WG_BQ) * Hq, 1, B);
+  kern<<<grid, WG_THREADS, smem, st>>>(tq, tk, tv, (__nv_bfloat16*)out, Hq,
+                                       Hkv, a);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_bf16(const void* q, const void* k, const void* v, void* out,
+                  int B, int Hq, int Hkv, int S, int Sk, int D, float scale,
+                  float softcap, int has_softcap, int causal, int has_window,
+                  int window, cudaStream_t st) {
+  TcArgs a;
+  a.S = S;
+  a.Sk = Sk;
+  a.D = D;
+  a.scale = scale;
+  a.scale2 = scale * LOG2E;
+  a.inv_cap = has_softcap ? 1.f / softcap : 0.f;
+  a.cap2 = softcap * LOG2E;
+  a.has_softcap = has_softcap;
+  a.causal = causal;
+  a.has_window = has_window;
+  a.window = window;
+  if (D <= 32) return launch_bf16<32>(q, k, v, out, B, Hq, Hkv, a, st);
+  if (D <= 64) return launch_bf16<64>(q, k, v, out, B, Hq, Hkv, a, st);
+  if (D <= 80) return launch_bf16<80>(q, k, v, out, B, Hq, Hkv, a, st);
+  if (D <= 96) return launch_bf16<96>(q, k, v, out, B, Hq, Hkv, a, st);
+  if (D <= 128) return launch_bf16<128>(q, k, v, out, B, Hq, Hkv, a, st);
+  if (D <= 192) return launch_bf16<192>(q, k, v, out, B, Hq, Hkv, a, st);
+  return launch_bf16<256>(q, k, v, out, B, Hq, Hkv, a, st);
 }
 
 }  // namespace
@@ -302,11 +874,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (D <= 0 || D % 8 || D > 256) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, out, B, Hq, Hkv, S, Sk, D, scale,
-                           softcap, has_softcap, causal, has_window, window,
-                           st);
-  return dispatch<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, S, Sk, D, scale,
+  if (dtype == 0) {
+    if (D <= 64)
+      return launch<float, 4, 2>(q, k, v, out, B, Hq, Hkv, S, Sk, D, scale,
                                  softcap, has_softcap, causal, has_window,
                                  window, st);
+    if (D <= 128)
+      return launch<float, 4, 4>(q, k, v, out, B, Hq, Hkv, S, Sk, D, scale,
+                                 softcap, has_softcap, causal, has_window,
+                                 window, st);
+    return launch<float, 2, 8>(q, k, v, out, B, Hq, Hkv, S, Sk, D, scale,
+                               softcap, has_softcap, causal, has_window,
+                               window, st);
+  }
+  return dispatch_bf16(q, k, v, out, B, Hq, Hkv, S, Sk, D, scale, softcap,
+                       has_softcap, causal, has_window, window, st);
 }

@@ -4,7 +4,10 @@ Replaces the TPU kernel
 `repro/kernels/flash_attention.py::_flash_fwd_kernel`.  q [B, Hq, S, D]
 attends over k, v [B, Hkv, Sk, D] with GQA, a causal mask, a sliding
 window and a logit softcap, in fp32 online softmax; kv tiles outside
-the causal diagonal or the window are skipped.
+the causal diagonal or the window are skipped.  bfloat16 runs on the
+tensor cores (wgmma; P as a hi/lo pair of bf16 values, so that the
+output stays within one rounding of the plain version), float32 on the
+CUDA cores.
 
 `flash_attention_fwd` keeps the JAX signature (without `interpret`) and
 refuses, with ValueError, what the JAX assertion refuses: Hq not a

@@ -53,7 +53,7 @@ class EventRing(NamedTuple):
     count: torch.Tensor  # int32 scalar: events ever pushed
 
 
-def make_ring(capacity: int, device="cpu") -> EventRing:
+def make_ring(capacity: int, device="cuda") -> EventRing:
     return EventRing(
         buf=torch.zeros((capacity + 1, len(EVENT_FIELDS)), dtype=I32, device=device),
         count=torch.zeros((), dtype=I32, device=device),

@@ -18,8 +18,11 @@ attention) must agree within fp32 2e-5 / bf16 3e-2 and give zeros on
 rows with no live page.  Kernel 5 (flash attention) must agree with
 `flash_attention_plain` within fp32 2e-5 / bf16 2e-2 over the sweep of
 tests/test_kernels.py (shapes, variants, block sizes), at D=80 and
-D=128 and with a ragged Sk, and the gradient of `ops.flash_attention`
-must equal autograd through the plain version.  The engine's decode
+D=128 and with a ragged Sk, every bf16 output also within one rounding
+(2^-7 |want| + 1e-4), its tensor-core body at S = 1024-2048 over D in
+{16, 24, 64, 80, 128, 256}, GQA groups 1-4, windows, softcaps, ragged
+S and Sk and B = 2, and the gradient of `ops.flash_attention` must
+equal autograd through the plain version.  The engine's decode
 step must run with no host sync in both layouts, with and without the
 front ends and the event ring.
 """
@@ -312,13 +315,17 @@ def test_flash_kernel_shapes_match_plain(cuda_device, S, D, Hq, Hkv, dtype):
     _flash_check(cuda_device, dtype, 2, Hq, Hkv, S, D)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("variant", [
     dict(causal=False), dict(causal=True, window=64), dict(causal=True, softcap=30.0),
     dict(causal=True, window=96, softcap=50.0), dict(causal=True, window=0),
-], ids=["noncausal", "window64", "softcap30", "window96-softcap50", "window0"])
-def test_flash_kernel_variants_match_plain(cuda_device, variant):
-    out = _flash_check(cuda_device, torch.float32, 1, 4, 2, 256, 32, **variant)
-    if variant.get("window") == 0:
+    dict(causal=True, window=-7),
+], ids=["noncausal", "window64", "softcap30", "window96-softcap50", "window0",
+        "window-negative"])
+def test_flash_kernel_variants_match_plain(cuda_device, variant, dtype):
+    """A degenerate window (0 or negative) leaves no live column: zeros."""
+    out = _flash_check(cuda_device, dtype, 1, 4, 2, 256, 32, **variant)
+    if variant.get("window", 1) <= 0:
         assert not out.any()
 
 
@@ -339,13 +346,49 @@ def test_flash_kernel_model_widths_match_plain(cuda_device, dtype, Hq, Hkv, D, v
     _flash_check(cuda_device, dtype, 1, Hq, Hkv, 320, D, **variant)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,Sk,variant", [
     (100, 200, dict(causal=True)), (200, 100, dict(causal=True, window=30)),
     (60, 132, dict(causal=False, softcap=20.0)),
 ])
-def test_flash_kernel_ragged_kv_matches_plain(cuda_device, S, Sk, variant):
+def test_flash_kernel_ragged_kv_matches_plain(cuda_device, S, Sk, variant, dtype):
     """Sk and S off the kernel's tiles (blocks of 4 pass the JAX check)."""
-    _flash_check(cuda_device, torch.float32, 2, 4, 2, S, 80, Sk=Sk, block=4, **variant)
+    _flash_check(cuda_device, dtype, 2, 4, 2, S, 80, Sk=Sk, block=4, **variant)
+
+
+_CAUSAL = dict(causal=True)
+_TC_CASES = [
+    # (B, Hq, Hkv, S, Sk, D, block, variant): several kv tiles, interior
+    # and diagonal, at the repo's head widths and GQA groups 1, 2 and 4
+    *[(1, 4, 4 // group, 1024, None, D, 64, _CAUSAL)
+      for D in (64, 80, 128) for group in (1, 2, 4)],
+    (1, 4, 2, 1024, None, 128, 64, dict(causal=True, window=100)),  # ends inside a tile
+    (1, 4, 2, 1024, None, 128, 64, dict(causal=True, softcap=50.0)),
+    (1, 4, 1, 2048, None, 80, 64, dict(causal=True, window=700, softcap=50.0)),
+    (1, 4, 2, 1024, None, 128, 64, dict(causal=False)),
+    (1, 4, 2, 1020, 1100, 80, 4, _CAUSAL),                    # Sk != S, both ragged
+    (1, 4, 2, 1100, 1020, 128, 4, dict(causal=True, window=250)),
+    (2, 4, 2, 1024, None, 80, 64, _CAUSAL),                   # B = 2
+    # contraction padding (16, 24) and the register budget (256)
+    *[(1, 4, 2, 1024, None, D, 64, dict(causal=True, window=300)) for D in (16, 24, 256)],
+    (1, 2, 1, 1024, None, 256, 64, dict(causal=False, softcap=30.0)),
+]
+_TC_IDS = [
+    *[f"d{D}-group{g}" for D in (64, 80, 128) for g in (1, 2, 4)],
+    "d128-window100", "d128-softcap50", "d80-s2048-window700-softcap50",
+    "d128-noncausal", "d80-sk1100-s1020", "d128-sk1020-s1100-window250", "d80-b2",
+    "d16-window300", "d24-window300", "d256-window300", "d256-noncausal-softcap30",
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,Sk,D,block,variant", _TC_CASES, ids=_TC_IDS)
+def test_flash_bf16_tensor_core_tiles_match_plain(cuda_device, B, Hq, Hkv, S, Sk, D,
+                                                   block, variant):
+    """The bf16 body (tensor cores, P as a hi/lo bf16 pair) within one
+    rounding of the output at S = 1024-2048: many kv tiles, with and
+    without masks."""
+    _flash_check(cuda_device, torch.bfloat16, B, Hq, Hkv, S, D, Sk=Sk, block=block,
+                 **variant)
 
 
 def test_flash_kernel_refuses_unsupported(cuda_device):

@@ -64,7 +64,7 @@ def test_ring_ops_match_jax(cap):
     """A seeded mix of single and batched pushes, masked in and out,
     wrapping the ring many times."""
     rng = np.random.default_rng(cap)
-    t, j = tring.make_ring(cap), jring.make_ring(cap)
+    t, j = tring.make_ring(cap, device="cpu"), jring.make_ring(cap)
     for step in range(40):
         if rng.random() < 0.5:
             vals = rng.integers(-5, 1000, size=W).astype(np.int32)
@@ -83,7 +83,7 @@ def test_ring_ops_match_jax(cap):
 
 
 def test_zero_capacity_ring_only_counts():
-    t, j = tring.make_ring(0), jring.make_ring(0)
+    t, j = tring.make_ring(0, device="cpu"), jring.make_ring(0)
     row = np.arange(W, dtype=np.int32)
     t = tring.push(t, torch.from_numpy(row))
     j = jring.push(j, jnp.asarray(row))
