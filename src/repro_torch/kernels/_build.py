@@ -8,7 +8,9 @@ into `build/torch_kernels/<name>.so` under the checkout root:
          -Xcompiler -fPIC -o build/torch_kernels/<name>.so csrc/<name>.cu
 
 A library is rebuilt when its source is newer than it.  `build_all`
-starts one `nvcc` per source at once.  Nothing here runs at import.
+starts one `nvcc` per source at once.  `build` and `use` serve timing
+another build of a kernel (another commit's source, other `-D` flags)
+beside this one in one process.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -43,11 +45,11 @@ def _nvcc() -> str:
     )
 
 
-def _command(name: str) -> list:
+def _command(source: Path, out: Path, flags: Sequence[str] = ()) -> list:
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(BUILD_DIR / f"{name}.so"), str(CSRC / f"{name}.cu"),
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags,
+        "-o", str(out), str(source),
     ]
 
 
@@ -56,24 +58,31 @@ def _stale(name: str) -> bool:
     return not so.exists() or so.stat().st_mtime < cu.stat().st_mtime
 
 
+def build(jobs: Dict[str, Tuple[Path, Path, Sequence[str]]]) -> Dict[str, str]:
+    """Compile each job's (source, library, extra nvcc flags), one `nvcc`
+    per job, all started at once.  Returns each compiler's diagnostics
+    (registers, shared memory) by job name."""
+    procs = {}
+    for job, (source, out, flags) in jobs.items():
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        procs[job] = subprocess.Popen(
+            _command(source, out, flags), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        )
+    logs = {}
+    for job, p in procs.items():
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {jobs[job][0]} ({job}):\n{out}")
+        logs[job] = out
+    return logs
+
+
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every stale library, one `nvcc` per source in parallel.
     Returns each compiler's diagnostics (registers, shared memory)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {
-        n: subprocess.Popen(
-            _command(n), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True,
-        )
-        for n in names if _stale(n)
-    }
-    logs = {}
-    for n, p in procs.items():
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{n}.cu:\n{out}")
-        logs[n] = out
-    return logs
+    return build({n: (CSRC / f"{n}.cu", BUILD_DIR / f"{n}.so", ())
+                  for n in names if _stale(n)})
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -85,6 +94,14 @@ def load(name: str) -> ctypes.CDLL:
                 build_all([name])
             lib = ctypes.CDLL(str(BUILD_DIR / f"{name}.so"))
             _LIBS[name] = lib
+        return lib
+
+
+def use(name: str, path: Path) -> ctypes.CDLL:
+    """Load the library at `path` in place of `csrc/<name>.cu`'s: later
+    launches of that kernel in this process run it."""
+    with _LOCK:
+        lib = _LIBS[name] = ctypes.CDLL(str(path))
         return lib
 
 

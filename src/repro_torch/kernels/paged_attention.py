@@ -4,9 +4,16 @@ Replaces the TPU kernel
 `repro/kernels/paged_attention.py::_paged_decode_kernel`.  One new token
 per sequence attends over a page pool [P, page, Hkv, D] through block
 tables [B, max_pages] (-1 padded) and context lengths [B]; GQA, optional
-softcap, fp32 online softmax.  Pages with id < 0 or starting past the
-context are skipped, and a row with no live page gives zeros, as the
-Pallas kernel does.
+softcap, fp32 online softmax, each output element rounded once to q's
+dtype.  Pages with id < 0 or starting past the context are skipped, and
+a row with no live position gives zeros, as the Pallas kernel does.
+
+The kernel is built for the H100's memory: one CTA per (sequence, tile
+of q heads sharing adjacent kv heads), so each K/V row is read once per
+kv head; the block-table row compacted into shared memory once per
+CTA; the live pages dealt to four warps, each streaming its share
+through a ring of shared-memory stages filled by 16-byte `cp.async`
+and keeping its own fp32 (m, l, acc); the warps merged at the end.
 
 `paged_attention` runs `paged_attention_plain` for CPU tensors and the
 kernel for CUDA tensors (or raises); `launches` counts the launches.
@@ -55,6 +62,16 @@ def _lib():
     return lib
 
 
+def tile_plan(Hq: int, Hkv: int, D: int, max_pages: int, dtype) -> dict:
+    """The kernel's tiling for these widths (builds the kernel): q-head
+    slots per kv head, kv heads per CTA, elements of a row per lane, CTAs
+    per sequence and bytes of dynamic shared memory per CTA."""
+    plan = (ctypes.c_int * 5)()
+    _lib().paged_attention_plan(Hq, Hkv, D, max_pages, _DTYPES[dtype], plan)
+    return dict(q_slots=plan[0], kv_heads=plan[1], lane_elems=plan[2],
+                ctas_per_seq=plan[3], smem_bytes=plan[4])
+
+
 def paged_attention(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -66,7 +83,13 @@ def paged_attention(
 ) -> torch.Tensor:
     """q: [B, Hq, D]; k/v_pages: [P, page, Hkv, D]; tables: [B,
     max_pages] int32; lens: [B] int32.  Returns [B, Hq, D] in q's dtype.
-    fp32 and bf16; D a multiple of 8 up to 128."""
+    fp32 and bf16; D a multiple of 8 up to 128.
+
+    The kernel reads K/V in place when they are contiguous and start on a
+    16-byte boundary, as the engine's layer views do.  Any other view is
+    copied on every call: the whole pool, 2 * P * page * Hkv * D
+    elements (168 MB for one of stablelm-3b's bf16 layers of 4096 pages
+    of 4), far more than the launch itself reads."""
     global launches
     dev = q.device
     if dev.type == "cpu":
@@ -95,6 +118,10 @@ def paged_attention(
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     q, k_pages, v_pages = q.contiguous(), k_pages.contiguous(), v_pages.contiguous()
+    # the kernel copies K/V in 16-byte pieces; a view that starts off a
+    # 16-byte boundary is copied to a fresh allocation (see the docstring)
+    k_pages = k_pages if k_pages.data_ptr() % 16 == 0 else k_pages.clone()
+    v_pages = v_pages if v_pages.data_ptr() % 16 == 0 else v_pages.clone()
     tables = block_tables.to(torch.int32).contiguous()
     lens = context_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
