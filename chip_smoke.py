@@ -4,6 +4,7 @@ NVIDIA H100.
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --ab paged_attention PARENT_DIR [.:-DPA_STAGES=3 ...]
+    python3 chip_smoke.py --ab nbbs_pool_step PARENT_DIR
                                      # time builds of a kernel side by side
 
 Phases (any failure fails the run, exit code 1):
@@ -34,7 +35,8 @@ Phases (any failure fails the run, exit code 1):
      release half alone (`pool_free`, the engine's retirement burst)
      with its per-handle freed flags; then phase fastpath: the same
      churn on pools with the fastpath slab (both layouts, and S=1 depth
-     14 in the device-memory tier against the slab-less kernel), pure
+     14 in shared memory and depth 16 in the device-memory tier, each
+     against the slab-less kernel), pure
      leaf bursts that must equal an uncarved pool address for address,
      and kernel A with and without the slab at the engine's own shapes
      (alloc K=256 F=0, free F=8192 K=0); then phase frontends: the
@@ -44,9 +46,10 @@ Phases (any failure fails the run, exit code 1):
      and BENCH_MAGAZINE.json;
   4. the single-tree path: kernels 4 and 3 against `wavefront_alloc` /
      `wavefront_step` at bench_wavefront's shapes (depth 14, K in {1,
-     16, 256}, levels over 7 octaves: the device-memory tier) and
-     bench_bunch_rmw's (depth 12, K=128, 8 octaves: the shared-memory
-     tier), kernel 3 with F=K/2 frees from the live set, both layouts,
+     16, 256}, levels over 7 octaves) and bench_bunch_rmw's (depth 12,
+     K=128, 8 octaves), both in the shared-memory tier, and at depth 16,
+     K=256 (the device-memory tier), kernel 3 with F=K/2 frees from the
+     live set, both layouts,
      bit-identical; then, with the launch counts at 0, the user's
      single-tree path on the card: examples/quickstart.py §3-§6 through
      `repro_torch` with the example's assertions, and the single-op API
@@ -144,6 +147,8 @@ def entry_label(mangled):
         return "<{}, {}, {}>".format("packed" if m[1] == "1" else "unpacked",
                                      "shared" if m[2] == "1" else "device",
                                      "slab" if m[3] == "1" else "no slab")
+    if "empty_kernel" in mangled:
+        return "<empty>"
     m = re.search(r"flash_fwd_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)E", mangled)
     if m:
         return f"<bf16, DP={m[1]}, BK={m[2]}, NST={m[3]}>"
@@ -377,7 +382,7 @@ def phase_attention(torch, dev, report):
     return rows
 
 
-def ab_paged_attention(torch, dev, libs):
+def ab_paged_attention(torch, dev, libs, trees):
     """`--ab` rows of kernel B: phase attention's rows, each side's build
     held against the plain version and timed with `attention_ms`."""
     from repro_torch.kernels import _build, paged_attention as pa
@@ -403,12 +408,233 @@ def ab_paged_attention(torch, dev, libs):
                                                 softcap))
         row["bound_ms"], row["bound_by"] = attention_bound(torch, q, k, tables, lens)
         row["over_bound"] = {side: min(t) / row["bound_ms"] for side, t in row["ms"].items()}
+        row["ok"] = {side: e <= 1.0 for side, e in row["err_over_limit"].items()}
         log(json.dumps(row))
         rows.append(row)
     return rows
 
 
-AB_KERNELS = {"paged_attention": ab_paged_attention}
+AB_STEPS = 30   # bursts per churn row of `--ab nbbs_pool_step`; launches per fixed shape
+
+
+def side_wrappers(trees):
+    """Each side's own `kernels/nbbs_alloc.py`: its workspace layout and
+    tier rule go with its kernel.  Loaded beside this checkout's package,
+    whose `_build` hands each of them the library in use."""
+    import importlib.util
+
+    mods = {}
+    for side, tree in trees.items():
+        path = Path(tree) / "src" / "repro_torch" / "kernels" / "nbbs_alloc.py"
+        spec = importlib.util.spec_from_file_location(f"_ab_nbbs_alloc{len(mods)}", path)
+        mods[side] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[side])
+    return mods
+
+
+def _pool_same(torch, want, got):
+    return (all(torch.equal(a, b) for a, b in zip(want[:4], got[:4]))
+            and all(int(want[4][k]) == int(got[4][k]) for k in want[4]))
+
+
+def _free_same(torch, want, got):
+    return (torch.equal(want[0], got[0]) and torch.equal(want[3], got[1])
+            and [int(want[1]), int(want[2]), int(want[3].sum())]
+            == [int(got[2][k]) for k in ("free_merged_writes", "free_logical_rmws", "freed")])
+
+
+def _tree_same(torch, slots):
+    return lambda want, got: (all(torch.equal(a, b) for a, b in zip(want[:3], got[:3]))
+                              and [int(want[3][k]) for k in slots] == got[3].tolist())
+
+
+def ab_nbbs_rows(torch, dev):
+    """The rows of `--ab nbbs_pool_step`: (case, bound ms, steps), each
+    step (launch(wrapper module), plain result, same(want, got)).
+    Kernel A at the engine's alloc and free shapes (S=1 depth 12, 2048
+    leaf pages live) with and without the slab; `pool_churn`'s bursts
+    at S=1 depth 12 and S=4 depth 10 in both layouts and at S=1 depth 14
+    with and without the slab (AB_STEPS bursts, each launch on the plain
+    version's tree of that step); kernels 4 and 3 at bench_bunch_rmw's
+    depth 12, K=128 and bench_wavefront's depth 14, K=256, both layouts."""
+    import numpy as np
+
+    from repro_torch.core import concurrent as conc
+    from repro_torch.core.concurrent import BUNCH_PACKED, UNPACKED, TreeConfig
+    from repro_torch.core.fastpath import FastPathConfig
+    from repro_torch.core.pool import PoolConfig, pool_free_round, pool_wavefront_step
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    fp = FastPathConfig(level=None, slab_level=2)
+    rows = []
+    # kernel A at the engine's shapes
+    for pcfg in (PoolConfig(TreeConfig(depth=12), 1),
+                 PoolConfig(TreeConfig(depth=12), 1, fastpath=fp)):
+        S, depth, W = pcfg.n_shards, pcfg.tree.depth, pcfg.n_state_words
+        K, F, live = 256, 8192, 2048
+        none = torch.zeros(0, **i32)
+        levels = torch.full((K,), depth, **i32)
+        act = torch.ones(K, dtype=torch.bool, device=dev)
+        trees = pcfg.empty_trees(dev)
+        fn, fs = torch.zeros(F, **i32), torch.zeros(F, **i32)
+        for j in range(live // K):
+            trees, nodes, shard, _, _ = pool_wavefront_step(
+                pcfg, trees, none, none, none.bool(), levels, act, 64,
+                torch.arange(K, **i32) + j * K)
+            fn[j * K:(j + 1) * K], fs[j * K:(j + 1) * K] = nodes, shard
+        fa = torch.arange(F, device=dev) < live
+        ids = torch.arange(K, **i32) + live
+        tag = " slab" if pcfg.fastpath else ""
+        want_a = pool_wavefront_step(pcfg, trees, none, none, none.bool(), levels, act, 64, ids)
+        want_f = pool_free_round(pcfg, trees, fn, fs, fa)
+        alloc_args = (none, none, none, levels, act, ids)
+        rows.append((f"A engine alloc S=1 d12 K=256 F=0{tag}",
+                     (2 * S * W * 4 + K * 12 + K * 8 + 28) / HBM_BPS * 1e3,
+                     [(lambda m, p=pcfg, t=trees, a=alloc_args: m.pool_step(p, t, *a),
+                       want_a, lambda w, g: _pool_same(torch, w, g))] * AB_STEPS))
+        rows.append((f"A engine free S=1 d12 F=8192 K=0{tag}",
+                     (2 * S * W * 4 + F * 12 + F * 4 + 28) / HBM_BPS * 1e3,
+                     [(lambda m, p=pcfg, t=trees, a=(fn, fs, fa): m.pool_free(p, t, *a),
+                       want_f, lambda w, g: _free_same(torch, w, g))] * AB_STEPS))
+    # kernel A's churn
+    for layout, S, depth, slab in ((UNPACKED, 1, 12, False), (UNPACKED, 4, 10, False),
+                                   (BUNCH_PACKED, 1, 12, False), (BUNCH_PACKED, 4, 10, False),
+                                   (UNPACKED, 1, 14, True), (UNPACKED, 1, 14, False)):
+        pcfg = PoolConfig(TreeConfig(depth=depth, layout=layout), S,
+                          fastpath=fp if slab else None)
+        K, F = 256, 8192
+        rng = np.random.default_rng(depth)
+        trees = pcfg.empty_trees(dev)
+        live = np.zeros((0, 2), np.int64)
+        steps = []
+        for step in range(AB_STEPS):
+            take, arrays = churn_inputs(rng, live, step, pcfg, K, F)
+            args = [torch.from_numpy(a).to(dev) for a in arrays]
+            want = pool_wavefront_step(pcfg, trees, *args[:5], 64, args[5])
+            steps.append((lambda m, p=pcfg, t=trees, a=args: m.pool_step(p, t, *a), want,
+                          lambda w, g: _pool_same(torch, w, g)))
+            trees = want[0]
+            live = churn_live(live, take, want[1], want[2])
+        nbytes = 2 * S * pcfg.n_state_words * 4 + F * 12 + K * 12 + K * 8 + 28
+        rows.append((f"A churn {layout.name} S={S} d{depth} K={K} F={F}"
+                     + (" slab" if slab else ""), nbytes / HBM_BPS * 1e3, steps))
+    # kernels 4 and 3
+    for layout in (UNPACKED, BUNCH_PACKED):
+        for depth, K, octaves, seed in ((12, 128, 7, 2), (14, 256, 6, 3)):
+            cfg = TreeConfig(depth=depth, layout=layout)
+            rng = np.random.default_rng(seed)
+            levels = torch.from_numpy(
+                rng.integers(depth - octaves, depth + 1, size=K).astype(np.int32)).to(dev)
+            act = torch.ones(K, dtype=torch.bool, device=dev)
+            empty, W = cfg.empty_tree(dev), cfg.n_state_words
+            want4 = conc.wavefront_alloc(cfg, empty, levels, act)
+            F = K // 2
+            fn, fa = want4[1][:F].contiguous(), want4[2][:F].contiguous()
+            want3 = conc.wavefront_step(cfg, want4[0], fn, fa, levels, act)
+            slots = ("rounds", "merged_writes", "logical_rmws")
+            rows.append((f"4 {layout.name} d{depth} K={K}", (8 * W + 9 * K + 12) / HBM_BPS * 1e3,
+                         [(lambda m, c=cfg, e=empty, a=(levels, act): m.wavefront_alloc(c, e, *a),
+                           want4, _tree_same(torch, slots))] * AB_STEPS))
+            rows.append((f"3 {layout.name} d{depth} K={K} F={F}",
+                         (8 * W + 9 * K + 9 * F + 24) / HBM_BPS * 1e3,
+                         [(lambda m, c=cfg, t=want4[0], a=(fn, fa, levels, act):
+                           m.wavefront_step(c, t, *a), want3,
+                           _tree_same(torch, slots + ("free_merged_writes",
+                                                      "free_logical_rmws", "freed")))]
+                         * AB_STEPS))
+    return rows
+
+
+def launch_ms(torch, fn):
+    """Device time of one launch queued behind a sleep kernel (so the
+    wrapper's host time is not counted), read with CUDA events."""
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(CHURN_SLEEP)
+    ev0.record()
+    out = fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1), out
+
+
+def kernel_launch_ms(torch, fn, name, reps):
+    """Mean device time of the kernels named `name` over `reps` calls of
+    fn, from a `torch.profiler` trace: the kernel alone, without the
+    wrapper's own PyTorch ops (casts of bool masks, the stat row's fill,
+    `nodes > 0`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):   # a trace now and then comes back without its kernels
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if name in e.name and str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if spans:
+            return sum(spans) / len(spans) / 1e3
+    raise AssertionError(f"the profiler saw no {name} launch in three traces")
+
+
+def ab_nbbs_pool_step(torch, dev, libs, trees):
+    """`--ab` rows of kernels A, 3 and 4 (`ab_nbbs_rows`), each side's
+    build through its own wrapper, every launch held bit-identical to the
+    plain version.  Per turn, `ms` is the mean device time of a wrapper
+    call (each queued behind a sleep kernel, read with CUDA events: the
+    kernel and the wrapper's small PyTorch ops), `kernel_ms` the mean
+    device time of the kernel alone (`torch.profiler`).  One more row
+    times an empty launch of the same block shape (this checkout's
+    `nbbs_empty_launch`) both ways: the floor under every row."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    sides = list(libs)
+    mods = side_wrappers(trees)
+    rows = []
+    floor = ctypes.CDLL(str(libs["change"])).nbbs_empty_launch
+    floor.argtypes, floor.restype = [ctypes.c_void_p], ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    empty = {"case": "empty 1024-thread launch", "ms": {"change": []},
+             "kernel_ms": {"change": []}, "ok": {"change": True}, "bound_ms": 0.0,
+             "bound_by": "none"}
+
+    def empty_launch():
+        _build.check(floor(stream), "nbbs_empty_launch")
+
+    for case, bound_ms, steps in ab_nbbs_rows(torch, dev):
+        row = {"case": case, "ms": {side: [] for side in sides},
+               "kernel_ms": {side: [] for side in sides}, "ok": {},
+               "bound_ms": bound_ms, "bound_by": "bytes"}
+        for side in sides + sides[::-1]:
+            _build.use("nbbs_pool_step", libs[side])
+            mod = mods[side]
+            steps[0][0](mod)   # a first launch: the library's first load
+            total, ok = 0.0, True
+            for launch, want, same in steps:
+                ms, got = launch_ms(torch, lambda: launch(mod))
+                total += ms
+                ok = ok and same(want, got)
+            row["ms"][side].append(total / len(steps))
+            it = itertools.cycle(steps)
+            row["kernel_ms"][side].append(kernel_launch_ms(
+                torch, lambda: next(it)[0](mod), "nbbs_step_kernel", len(steps)))
+            row["ok"][side] = row["ok"].get(side, True) and ok
+        row["parent_over_change"] = {side: min(t) / min(row["kernel_ms"]["change"])
+                                     for side, t in row["kernel_ms"].items()}
+        log(json.dumps(row))
+        rows.append(row)
+        if not empty["ms"]["change"] or len(rows) % 6 == 0:
+            empty["ms"]["change"].append(sum(
+                launch_ms(torch, empty_launch)[0] for _ in range(AB_STEPS)) / AB_STEPS)
+            empty["kernel_ms"]["change"].append(
+                kernel_launch_ms(torch, empty_launch, "empty_kernel", AB_STEPS))
+    log(json.dumps(empty))
+    return rows + [empty]
+
+
+AB_KERNELS = {"paged_attention": ab_paged_attention, "nbbs_pool_step": ab_nbbs_pool_step}
 
 
 def ab(torch, dev, card, argv):
@@ -418,10 +644,12 @@ def ab(torch, dev, card, argv):
     checkout's ("change") and each TREE's (another checkout or a `git
     archive` of one; "." is this checkout), each built with the port's
     nvcc command plus the TREE's flags (`-DNAME=VALUE`), launched in turns
-    forward then backward on the rows of KERNEL's phase.  Each turn holds
-    the output against the plain version; the change must pass.  Prints
-    each build's ptxas registers and spills and one JSON line per row,
-    and writes `chiprun_out/ab_KERNEL.json`.  KERNEL: paged_attention."""
+    forward then backward on KERNEL's rows.  Each turn holds the output
+    against the plain version; the change must pass.  Prints each build's
+    ptxas registers and spills and one JSON line per row, and writes
+    `chiprun_out/ab_KERNEL.json`.  KERNEL: paged_attention (phase
+    attention's rows) or nbbs_pool_step (`ab_nbbs_rows`: kernels A, 3 and
+    4, each side through its own `kernels/nbbs_alloc.py`)."""
     from repro_torch.kernels import _build
 
     if len(argv) < 3 or argv[0] != "--ab" or argv[1] not in AB_KERNELS:
@@ -430,19 +658,21 @@ def ab(torch, dev, card, argv):
     kernel = argv[1]
     out_dir = ROOT / "build" / "torch_kernels_ab"
     jobs = {"change": (_build.CSRC / f"{kernel}.cu", out_dir / "change.so", ())}
+    trees = {"change": ROOT}
     for spec in argv[2:]:
         tree, *flags = spec.split(":")
-        jobs[spec] = (Path(tree).resolve() / "src" / "repro_torch" / "csrc" / f"{kernel}.cu",
+        trees[spec] = Path(tree).resolve()
+        jobs[spec] = (trees[spec] / "src" / "repro_torch" / "csrc" / f"{kernel}.cu",
                       out_dir / f"side{len(jobs)}.so", flags)
     ptxas = {side: ptxas_entries(text) for side, text in _build.build(jobs).items()}
     log(json.dumps({"ptxas": ptxas}))
-    rows = AB_KERNELS[kernel](torch, dev, {side: job[1] for side, job in jobs.items()})
+    rows = AB_KERNELS[kernel](torch, dev, {side: job[1] for side, job in jobs.items()}, trees)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"ab_{kernel}.json").write_text(json.dumps(
         {"card": card, "sides": {side: [str(job[0]), list(job[2])] for side, job in jobs.items()},
          "ptxas": ptxas, "rows": rows}, indent=1))
-    bad = [r["case"] for r in rows if not r["err_over_limit"]["change"] <= 1.0]
+    bad = [r["case"] for r in rows if not r["ok"]["change"]]
     if bad:
         log(f"chip_smoke --ab: the change disagrees with the plain version on {bad}")
         return 1
@@ -455,6 +685,47 @@ def ab(torch, dev, card, argv):
 
 
 CHURN_SLEEP = 2_000_000   # cycles, about 1 ms: longer than a wrapper's host time
+
+
+def churn_inputs(rng, live, step, pcfg, K, F):
+    """One mixed burst of `pool_churn`: a share of the live (shard, node)
+    handles freed, plus junk, stale, duplicate and out-of-range handles;
+    K lanes (70% at the leaf octave, the rest up to 4 octaves above) with
+    ids whose hash wraps.  Returns (the live handles freed, (free nodes,
+    free shards, free active, levels, active, lane ids))."""
+    import numpy as np
+
+    S, N, depth = pcfg.n_shards, pcfg.n_words, pcfg.tree.depth
+    big_ids = np.array([2**31 - 1, 2**31 - 2, 2**30 + 7, -1, 2, 3], np.int32)
+    p_free = 0.6 if step % 4 == 3 else 0.08
+    take = live[rng.random(len(live)) < p_free]
+    fn = rng.integers(0, N, size=F).astype(np.int32)
+    fs = rng.integers(0, S, size=F).astype(np.int32)
+    fa = np.zeros(F, bool)
+    n = len(take)
+    fs[:n], fn[:n], fa[:n] = take[:, 0], take[:, 1], True
+    fa[n : n + 32] = True                    # junk and stale handles
+    fn[n + 32 : n + 40], fs[n + 32 : n + 40] = fn[:8], fs[:8]
+    fa[n + 32 : n + 40] = fa[:8]             # duplicates
+    fs[n + 40], fa[n + 40] = S + 3, True     # shard out of range
+    levels = np.where(rng.random(K) < 0.7, depth,
+                      rng.integers(depth - 4, depth, size=K)).astype(np.int32)
+    act = rng.random(K) < 0.9
+    ids = rng.integers(0, 100_000, size=K).astype(np.int32)
+    ids[rng.integers(0, K, size=len(big_ids))] = big_ids
+    return take, (fn, fs, fa, levels, act, ids)
+
+
+def churn_live(live, take, nodes, shard):
+    """The live handles after a burst freed `take` and served `nodes`."""
+    import numpy as np
+
+    freed = set(map(tuple, take.tolist()))
+    keep = np.array([tuple(h) not in freed for h in live.tolist()], bool)
+    live = live[keep] if len(live) else live
+    nodes, shard = nodes.cpu().numpy(), shard.cpu().numpy()
+    new = np.stack([shard[nodes > 0], nodes[nodes > 0]], 1).astype(np.int64)
+    return np.concatenate([live, new])
 
 
 def pool_churn(torch, dev, pcfg, steps, seed, K=256, F=8192):
@@ -473,9 +744,7 @@ def pool_churn(torch, dev, pcfg, steps, seed, K=256, F=8192):
     cfg, S, depth = pcfg.tree, pcfg.n_shards, pcfg.tree.depth
     what = f"pool step {cfg.layout.name} S={S} depth {depth}" + (
         " fastpath" if pcfg.fastpath else "")
-    big_ids = np.array([2**31 - 1, 2**31 - 2, 2**30 + 7, -1, 2, 3], np.int32)
     rng = np.random.default_rng(seed)
-    N = pcfg.n_words
     trees = pcfg.empty_trees(dev)
     live = np.zeros((0, 2), np.int64)        # (shard, node)
     kern_ms = plain_ms = 0.0
@@ -484,23 +753,8 @@ def pool_churn(torch, dev, pcfg, steps, seed, K=256, F=8192):
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     first_ms = None
     for step in range(steps):
-        p_free = 0.6 if step % 4 == 3 else 0.08
-        take = live[rng.random(len(live)) < p_free]
-        fn = rng.integers(0, N, size=F).astype(np.int32)
-        fs = rng.integers(0, S, size=F).astype(np.int32)
-        fa = np.zeros(F, bool)
-        n = len(take)
-        fs[:n], fn[:n], fa[:n] = take[:, 0], take[:, 1], True
-        fa[n : n + 32] = True                    # junk and stale handles
-        fn[n + 32 : n + 40], fs[n + 32 : n + 40] = fn[:8], fs[:8]
-        fa[n + 32 : n + 40] = fa[:8]             # duplicates
-        fs[n + 40], fa[n + 40] = S + 3, True     # shard out of range
-        levels = np.where(rng.random(K) < 0.7, depth,
-                          rng.integers(depth - 4, depth, size=K)).astype(np.int32)
-        act = rng.random(K) < 0.9
-        ids = rng.integers(0, 100_000, size=K).astype(np.int32)
-        ids[rng.integers(0, K, size=len(big_ids))] = big_ids
-        args = [torch.from_numpy(a).to(dev) for a in (fn, fs, fa, levels, act, ids)]
+        take, arrays = churn_inputs(rng, live, step, pcfg, K, F)
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = pool_wavefront_step(pcfg, trees, *args[:5], 64, args[5])
@@ -536,13 +790,8 @@ def pool_churn(torch, dev, pcfg, steps, seed, K=256, F=8192):
         for k_ in tot:
             if k_ != "won":
                 tot[k_] += int(got[4][k_])
-        nodes, shard = got[1].cpu().numpy(), got[2].cpu().numpy()
-        tot["won"] += int((nodes > 0).sum())
-        freed = set(map(tuple, take.tolist()))
-        keep = np.array([tuple(h) not in freed for h in live.tolist()], bool)
-        live = live[keep] if len(live) else live
-        new = np.stack([shard[nodes > 0], nodes[nodes > 0]], 1).astype(np.int64)
-        live = np.concatenate([live, new])
+        tot["won"] += int((got[1] > 0).sum())
+        live = churn_live(live, take, got[1], got[2])
     if S > 1 and tot["overflows"] == 0:
         raise AssertionError(f"the {what} churn never overflowed")
     if pcfg.fastpath is not None and tot["fastpath_hits"] == 0:
@@ -682,8 +931,8 @@ def engine_shape_rows(torch, dev, pcfg):
 def phase_fastpath(torch, dev, report):
     """Kernel A with the fastpath slab against its plain version: the
     alloc phase's churn (same seeds) on carved pools in both layouts and
-    in the device-memory tier, pure leaf bursts against an uncarved pool,
-    and both kernels at the engine's own shapes."""
+    at depths 14 and 16 (the device-memory tier), pure leaf bursts against
+    an uncarved pool, and both kernels at the engine's own shapes."""
     from repro_torch.core.concurrent import BUNCH_PACKED, UNPACKED, TreeConfig
     from repro_torch.core.fastpath import FastPathConfig
     from repro_torch.core.pool import PoolConfig
@@ -691,12 +940,12 @@ def phase_fastpath(torch, dev, report):
     fp = FastPathConfig(level=None, slab_level=2)
     no_slab = {(r["layout"], r["S"], r["depth"]): r["ms"] for r in report.get("alloc", [])}
     rows, leaf, shapes = [], [], []
-    for packed, S, depth in CHURN_POOLS + ((0, 1, 14),):
+    for packed, S, depth in CHURN_POOLS + ((0, 1, 14), (0, 1, 16)):
         layout = BUNCH_PACKED if packed else UNPACKED
         tree = TreeConfig(depth=depth, layout=layout)
-        steps = 200 if depth < 14 else 30
+        steps = 200 if depth < 14 else 30 if depth == 14 else 10
         row = pool_churn(torch, dev, PoolConfig(tree, S, fastpath=fp), steps, depth)
-        if (layout.name, S, depth) not in no_slab:   # the device tier: time both here
+        if (layout.name, S, depth) not in no_slab:   # not in phase alloc: time both here
             no_slab[(layout.name, S, depth)] = pool_churn(
                 torch, dev, PoolConfig(tree, S), steps, depth)["ms"]
         row["ms_no_slab"] = no_slab[(layout.name, S, depth)]
@@ -834,7 +1083,7 @@ def single_tree_rows(torch, dev, layout):
     from repro_torch.core.concurrent import TreeConfig
     from repro_torch.kernels import nbbs_alloc
 
-    shapes = [(14, K, 6, 3) for K in (1, 16, 256)] + [(12, 128, 7, 2)]
+    shapes = [(14, K, 6, 3) for K in (1, 16, 256)] + [(12, 128, 7, 2), (16, 256, 6, 4)]
     rows = []
     for depth, K, octaves, seed in shapes:
         cfg = TreeConfig(depth=depth, layout=layout)

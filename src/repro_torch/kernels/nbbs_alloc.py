@@ -31,14 +31,16 @@ For CPU tensors each wrapper runs its plain version.  For CUDA tensors
 it launches its kernel or raises; it never falls back.
 
 Memory tiers.  A launch needs `workspace_bytes` for the state words
-(slab words included) and the per-node, per-lane and per-slab-word
-scratch.  Up to `SMEM_LIMIT` they live in one block's shared memory;
-above it the wrapper allocates a device-memory
-workspace and the same kernel runs from it.  `tier_launches` counts the
-launches of each tier.  Limits (ValueError): at most `MAX_NODES` = 2^19
-tree nodes in the whole stack (one depth-18 tree, the size the Pallas
-kernel is documented for) and `MAX_LANES` alloc lanes, because each lane
-counts its rank among the lanes before it.
+(slab words included) and the scratch: a flag byte and three bits per
+node, a count table per warp of lanes, three words per slab word.  Up to
+`SMEM_LIMIT` they live in one block's shared memory: every stack of up
+to 2^15 nodes (one depth-14 tree, S=2 at depth 13) at K <= 256, in both
+layouts.  Above it the wrapper allocates a device-memory workspace and
+the same kernel runs from it.  `tier_launches` counts the launches of
+each tier.  Limits (ValueError): at most `MAX_NODES` = 2^19 tree nodes
+in the whole stack (one depth-18 tree, the size the Pallas kernel is
+documented for) and `MAX_LANES` alloc lanes: the kernel keeps each lane
+in registers, at most two per thread of its 1024-thread block.
 """
 
 from __future__ import annotations
@@ -88,14 +90,25 @@ _ARGTYPES = {
 }
 
 
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
 def workspace_bytes(cfg: TreeConfig, n_trees: int, n_lanes: int, slab_words: int = 0) -> int:
-    """Bytes of one launch: the tree state words, three int32 words and
-    one flag byte per node (prefix +1, owner, descendant), seven int32
-    words per alloc lane, and per slab word three int32 words (the word,
-    its copy before a phase, the free-slot prefix) plus one."""
-    T = n_trees * cfg.n_words
-    return (4 * n_trees * cfg.n_state_words + 4 * (3 * n_trees * slab_words + 1)
-            + 13 * T + 4 + 28 * n_lanes)
+    """Bytes of one launch, as the kernel lays them out (`sizes_of` in
+    the source): the tree state words and per slab word three int32
+    words (the word, its copy before a phase, the free-slot prefix) plus
+    one, 16-byte aligned; one flag byte per node, 16-byte aligned; per 32
+    nodes three words (allocatable bits, their prefix (+1), commit
+    marks); a count and a mask per warp of lanes and (shard, level) key,
+    plus a row of totals; with a slab, a count per warp of lanes (+1) and
+    shard."""
+    S, T = n_trees, n_trees * cfg.n_words
+    nwd, nlw, nk = (T + 31) // 32, (n_lanes + 31) // 32, n_trees * (cfg.depth + 1)
+    words = S * cfg.n_state_words + 3 * S * slab_words + 1
+    ints = (3 * nwd + 1 + (nlw + 1) * nk + nlw * nk
+            + ((nlw + 1) * S if slab_words else 0))
+    return _align16(4 * words) + _align16(T) + 4 * ints
 
 
 def smem_bytes(pcfg: PoolConfig, n_lanes: int) -> int:
@@ -125,8 +138,8 @@ def _i32(x: torch.Tensor, device) -> torch.Tensor:
 
 def _prepare(what, cfg: TreeConfig, n_trees: int, trees: torch.Tensor, shape, K: int,
              slab_words: int = 0):
-    """Check a launch and give its (workspace tensor or None, dynamic
-    shared-memory bytes, tier)."""
+    """Check a launch and give its (workspace tensor or None: shared
+    memory, workspace bytes, tier)."""
     dev = trees.device
     if dev.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda, not {dev}")
@@ -147,7 +160,7 @@ def _prepare(what, cfg: TreeConfig, n_trees: int, trees: torch.Tensor, shape, K:
         return None, nbytes, where
     # dropped when the wrapper returns: the caching allocator hands the
     # block out again only in the order of the current stream
-    return torch.empty(nbytes, dtype=torch.uint8, device=dev), 0, where
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev), nbytes, where
 
 
 def _launched(name: str, err: int, where: str) -> None:
@@ -234,7 +247,7 @@ def _launch_pool(pcfg, trees, free_nodes, free_shard, free_active, levels,
     global launches, slab_launches
     cfg, S, SW = pcfg.tree, pcfg.n_shards, pcfg.fp_state_words
     K, F = levels.shape[0], free_nodes.shape[0]
-    ws, smem, where = _prepare("nbbs_pool_step", cfg, S, trees, (S, pcfg.n_state_words),
+    ws, nbytes, where = _prepare("nbbs_pool_step", cfg, S, trees, (S, pcfg.n_state_words),
                                K, SW)
     dev = trees.device
     trees = trees.contiguous()
@@ -253,7 +266,7 @@ def _launch_pool(pcfg, trees, free_nodes, free_shard, free_active, levels,
         _packed(cfg), pcfg.n_state_words, SW, *fp_geom, fn.data_ptr(), fs.data_ptr(),
         fa.data_ptr(), F, lv.data_ptr(), act.data_ptr(), ids.data_ptr(), K,
         max_rounds, nodes.data_ptr(), shard.data_ptr(), freed.data_ptr(),
-        stats.data_ptr(), _ptr(ws), smem, torch.cuda.current_stream(dev).cuda_stream,
+        stats.data_ptr(), _ptr(ws), nbytes, torch.cuda.current_stream(dev).cuda_stream,
     )
     _launched("nbbs_pool_step", err, where)
     launches += 1
@@ -337,7 +350,7 @@ def wavefront_alloc(
         return tree, nodes, ok, pack_slots(WAVEFRONT_ALLOC_SLOTS, stats)
     global wavefront_alloc_launches
     K = levels.shape[0]
-    ws, smem, where = _prepare("nbbs_wavefront_alloc", cfg, 1, tree, (cfg.n_state_words,), K)
+    ws, nbytes, where = _prepare("nbbs_wavefront_alloc", cfg, 1, tree, (cfg.n_state_words,), K)
     dev = tree.device
     tree = tree.contiguous()
     lv, act = _i32(levels, dev), _i32(active, dev)
@@ -347,7 +360,7 @@ def wavefront_alloc(
     err = _fn("nbbs_wavefront_alloc")(
         tree.data_ptr(), out.data_ptr(), cfg.depth, cfg.max_level, _packed(cfg),
         cfg.n_state_words, lv.data_ptr(), act.data_ptr(), K, max_rounds,
-        nodes.data_ptr(), stats.data_ptr(), _ptr(ws), smem,
+        nodes.data_ptr(), stats.data_ptr(), _ptr(ws), nbytes,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _launched("nbbs_wavefront_alloc", err, where)
@@ -360,7 +373,7 @@ def _launch_step(cfg, tree, free_nodes, free_active, levels, active, max_rounds)
     stats int32[6])."""
     global wavefront_step_launches
     K, F = levels.shape[0], free_nodes.shape[0]
-    ws, smem, where = _prepare("nbbs_wavefront_step", cfg, 1, tree, (cfg.n_state_words,), K)
+    ws, nbytes, where = _prepare("nbbs_wavefront_step", cfg, 1, tree, (cfg.n_state_words,), K)
     dev = tree.device
     tree = tree.contiguous()
     fn, fa = _i32(free_nodes, dev), _i32(free_active, dev)
@@ -373,7 +386,7 @@ def _launch_step(cfg, tree, free_nodes, free_active, levels, active, max_rounds)
         tree.data_ptr(), out.data_ptr(), cfg.depth, cfg.max_level, _packed(cfg),
         cfg.n_state_words, fn.data_ptr(), fa.data_ptr(), F, lv.data_ptr(),
         act.data_ptr(), K, max_rounds, nodes.data_ptr(), freed.data_ptr(),
-        stats.data_ptr(), _ptr(ws), smem, torch.cuda.current_stream(dev).cuda_stream,
+        stats.data_ptr(), _ptr(ws), nbytes, torch.cuda.current_stream(dev).cuda_stream,
     )
     _launched("nbbs_wavefront_step", err, where)
     wavefront_step_launches += 1

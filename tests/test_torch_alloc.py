@@ -330,16 +330,18 @@ def test_ops_pool_step_matches_interpret_without_overflow(S, depth, seed):
 
 
 def test_kernel_geometry_limit():
-    """The main path's pools (4096 pages at S=1 and S=4, 256 lanes) run
-    from shared memory; larger ones from device memory, up to 2^19
+    """The main path's pools (4096 pages at S=1 and S=4, 256 lanes) and
+    every stack of up to 2^15 nodes (one depth-14 tree, S=2 at depth 13)
+    run from shared memory; larger ones from device memory, up to 2^19
     tree nodes in all."""
-    for S, depth in ((1, 12), (4, 10)):
+    for S, depth in ((1, 12), (4, 10), (1, 14), (2, 13)):
         _, tp = _cfgs(depth, S)
         assert nbbs_alloc.smem_bytes(tp, 256) <= nbbs_alloc.SMEM_LIMIT
         assert nbbs_alloc.tier(tp.tree, S, 256) == "shared"
-    _, big = _cfgs(13, 1)
-    assert nbbs_alloc.smem_bytes(big, 256) > nbbs_alloc.SMEM_LIMIT
-    assert nbbs_alloc.tier(big.tree, 1, 256) == "device"
+    for S, depth in ((1, 16), (4, 14)):
+        _, big = _cfgs(depth, S)
+        assert nbbs_alloc.smem_bytes(big, 256) > nbbs_alloc.SMEM_LIMIT
+        assert nbbs_alloc.tier(big.tree, S, 256) == "device"
     assert nbbs_alloc.MAX_NODES == 1 << 19     # one depth-18 tree
 
 

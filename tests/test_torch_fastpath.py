@@ -374,12 +374,16 @@ def test_largest_run_and_free_units_see_the_slab():
 
 def test_kernel_sizing_counts_the_slab():
     """Kernel A's workspace and tier count the slab words and their
-    scratch; the engine's pools stay in the shared-memory tier."""
-    for S, depth, sw in ((1, 12, 32), (4, 10, 8)):
+    scratch (three words per slab word, a rank count per warp of lanes
+    and shard); the engine's pools and the depth-14 slab pool stay in
+    the shared-memory tier, larger stacks go to device memory."""
+    for S, depth, sw in ((1, 12, 32), (4, 10, 8), (1, 14, 128)):
         _, tp = _pools(depth, S, "unpacked")
         assert tp.fp_state_words == sw
         plain = tpool.PoolConfig(tp.tree, S)
-        assert nbbs_alloc.smem_bytes(tp, 256) == nbbs_alloc.smem_bytes(plain, 256) + 12 * S * sw
+        assert nbbs_alloc.smem_bytes(tp, 256) == (
+            nbbs_alloc.smem_bytes(plain, 256) + 12 * S * sw + 4 * (256 // 32 + 1) * S)
         assert nbbs_alloc.tier(tp.tree, S, 256, sw) == "shared"
-    _, tp = _pools(14, 1, "unpacked")
-    assert nbbs_alloc.tier(tp.tree, 1, 256, tp.fp_state_words) == "device"
+    for S, depth in ((1, 16), (4, 14)):
+        _, tp = _pools(depth, S, "unpacked")
+        assert nbbs_alloc.tier(tp.tree, S, 256, tp.fp_state_words) == "device"

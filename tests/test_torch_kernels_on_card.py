@@ -108,7 +108,7 @@ def test_pool_step_kernel_matches_plain(cuda_device, S, depth, layout):
 @pytest.mark.parametrize("layout", ["unpacked", "packed"])
 @pytest.mark.parametrize("S,depth,tier", [
     (1, 6, "shared"), (4, 5, "shared"), (1, 12, "shared"), (4, 10, "shared"),
-    (1, 14, "device"), (2, 13, "device"),
+    (1, 14, "shared"), (2, 13, "shared"), (1, 16, "device"), (4, 14, "device"),
 ])
 def test_pool_step_slab_kernel_matches_plain(cuda_device, S, depth, tier, layout):
     """Kernel A with the fastpath slab: routed release, slab claims in
@@ -172,15 +172,18 @@ def test_magazine_path_on_card_matches_cpu(cuda_device, layout, fastpath):
 
 
 @pytest.mark.parametrize("layout", ["unpacked", "packed"])
-@pytest.mark.parametrize("S,depth", [(1, 14), (2, 13)])
-def test_pool_step_device_tier_matches_plain(cuda_device, S, depth, layout):
-    """Above one block's shared memory the same kernel runs from a
-    device-memory workspace and stays bit-identical."""
+@pytest.mark.parametrize("S,depth,tier", [
+    (1, 14, "shared"), (2, 13, "shared"), (1, 16, "device"), (4, 14, "device"),
+])
+def test_pool_step_device_tier_matches_plain(cuda_device, S, depth, tier, layout):
+    """Stacks of 2^15 nodes run from shared memory; above one block's
+    shared memory the same kernel runs from a device-memory workspace.
+    Both stay bit-identical."""
     pcfg = PoolConfig(TreeConfig(depth=depth, layout=LAYOUTS[layout]), S)
-    assert nbbs_alloc.tier(pcfg.tree, S, 64) == "device"
-    before = nbbs_alloc.tier_launches["device"]
+    assert nbbs_alloc.tier(pcfg.tree, S, 64) == tier
+    before = nbbs_alloc.tier_launches[tier]
     _pool_churn(cuda_device, pcfg, depth, steps=3)
-    assert nbbs_alloc.tier_launches["device"] >= before + 6
+    assert nbbs_alloc.tier_launches[tier] >= before + 6
 
 
 def test_pool_step_kernel_refuses_large_pools(cuda_device):
@@ -237,7 +240,8 @@ def _single_tree(dev, cfg, seed, steps, K, F):
 
 @pytest.mark.parametrize("layout", ["unpacked", "packed"])
 @pytest.mark.parametrize("depth,K,tier", [
-    (6, 16, "shared"), (12, 128, "shared"), (14, 256, "device"), (18, 64, "device"),
+    (6, 16, "shared"), (12, 128, "shared"), (14, 256, "shared"), (14, 2048, "shared"),
+    (16, 256, "device"), (18, 64, "device"),
 ])
 def test_single_tree_kernels_match_plain(cuda_device, depth, K, tier, layout):
     cfg = TreeConfig(depth=depth, layout=LAYOUTS[layout])
