@@ -67,12 +67,21 @@ Phases (any failure fails the run, exit code 1):
      per decode step and admission), and S=1 with the event ring
      (`ring_capacity=4096`: its schedule and counters equal the
      ring-less S=1 run's, its snapshot validates and renders as a
-     Chrome trace, `chiprun_out/engine_ring.trace.json`); every decode
-     chunk under
+     Chrome trace, `chiprun_out/engine_ring.trace.json`); every run
+     decodes in fused chunks of 8 (`run_to_completion(chunk=8)`: the
+     first chunk warms up and captures a CUDA graph, every later one
+     replays it), and one more S=1 run goes through the eager loop, the
+     reference: the fused S=1 run's schedule, counters and tokens must
+     equal it; eager and fused ms per step and tokens/s; every decode
+     chunk, the capture included, under
      torch.cuda.set_sync_debug_mode("error"); the kernels' launch counts
-     are read around this phase; then a
-     `torch.profiler` window of 8 steady decode steps at S=1 (device busy
-     share, kernels by device time);
+     (replays count their graph's launches) are read around this phase
+     and must be 2 (3) kernel A per step and admission and 32 kernel B
+     per step; then a `torch.profiler` window of two fused chunks at S=1
+     (device busy ms and idle share, kernels by device time, kernels A
+     and B counted per step from the device events) and a CPU-side
+     profile of one eager step (aten calls, host ms by op and by part of
+     the step);
   6. the same trace and geometry through the port's engine on the CPU at
      stablelm-3b's reduced config: with EOS off the schedule does not
      depend on tokens, so the retirement order and steps and every
@@ -111,6 +120,7 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import math
@@ -1271,48 +1281,56 @@ def make_trace(seed, n=64, vocab=256):
 # at once).  With all 64 requests at once each takes its own lane of 256
 # and no lane is used twice; the front-end runs let 16 arrive per chunk,
 # so later requests take the lanes of retired ones and their magazines.
-# The last run is the first with the event ring on.
+# The last run is the first with the event ring on.  Every run decodes
+# in fused chunks (a CUDA graph replay each, after the first chunk);
+# EAGER_RUN is the first run again through the eager loop, the
+# reference that the fused S=1 run must reproduce.
 RING_RUN = (1, "unpacked", {"ring_capacity": 4096}, None)
 ENGINE_RUNS = (
     (1, "unpacked", {}, None), (4, "unpacked", {}, None), (4, "bunch-packed", {}, None),
     (1, "unpacked", {"fastpath": True}, 16), (4, "unpacked", {"fastpath": True}, 16),
     (4, "bunch-packed", {"fastpath": True, "magazines": 4}, 16), RING_RUN,
 )
+EAGER_RUN = ENGINE_RUNS[0]
 
 
-def run_name(S, layout, kw, per_chunk=None):
+def run_name(S, layout, kw, per_chunk=None, fused=True):
     return f"S{S}-{layout}" + "".join(f"-{k}" for k in sorted(kw)) + (
-        f"-arrivals{per_chunk}" if per_chunk else "")
+        f"-arrivals{per_chunk}" if per_chunk else "") + ("" if fused else "-eager")
 
 
 def run_engine(torch, cfg, params, dev, dtype, S, trace, layout="unpacked", per_chunk=None,
-               **kw):
+               fused=True, **kw):
     """Serve `trace` to completion, `per_chunk` requests arriving before
-    each decode chunk (all at once if None).  On the card every decode
-    chunk runs under torch.cuda.set_sync_debug_mode("error") (a host
-    sync raises) between two CUDA events."""
+    each decode chunk (all at once if None), through
+    `run_to_completion(chunk=CHUNK)`: fused chunks, or with `fused=False`
+    the eager loop.  On the card every decode chunk, the first fused
+    one's warm-up and capture included, runs under
+    torch.cuda.set_sync_debug_mode("error") (a host sync raises) between
+    two CUDA events."""
     from repro_torch.serve.engine import Request
     from repro_torch.serve.jit_engine import JitServeEngine
 
     eng = JitServeEngine(cfg, params, dtype=dtype, device=dev, n_shards=S,
                          layout=layout, **GEOM, **kw)
     chunks = []
-    if dev.type == "cuda":
-        inner = eng.decode_steps
+    inner, run_fused = eng.decode_steps, fused
 
-        def timed(n):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                inner(n)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            b.record()
-            chunks.append((n, a, b))
+    def timed(n, fused=False):
+        if dev.type != "cuda":
+            return inner(n, fused=fused and run_fused)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            inner(n, fused=fused and run_fused)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        b.record()
+        chunks.append((n, a, b))
 
-        eng.decode_steps = timed
+    eng.decode_steps = timed
     pending = list(trace)
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -1351,11 +1369,13 @@ def phase_engine(torch, dev, report, state):
     nbbs_alloc.launches = 0
     nbbs_alloc.slab_launches = 0
     pa.launches = 0
-    for S, layout, kw, per_chunk in ENGINE_RUNS:
-        name = run_name(S, layout, kw, per_chunk)
+    for S, layout, kw, per_chunk, fused in [(*EAGER_RUN, False)] + [
+            (*r, True) for r in ENGINE_RUNS]:
+        name = run_name(S, layout, kw, per_chunk, fused)
         a0, b0 = nbbs_alloc.launches, pa.launches
         eng, wall, chunks, decode_ms = run_engine(
-            torch, cfg, params, dev, torch.bfloat16, S, trace, layout, per_chunk, **kw)
+            torch, cfg, params, dev, torch.bfloat16, S, trace, layout, per_chunk, fused,
+            **kw)
         steps = eng.stats["steps"]
         tokens = sum(len(r.out_tokens) for r in eng.completed.values())
         tot = eng.stat_totals()
@@ -1379,12 +1399,18 @@ def phase_engine(torch, dev, report, state):
         if nbbs_alloc.launches - a0 != want_launches:
             raise AssertionError(f"{name}: {nbbs_alloc.launches - a0} kernel A launches, "
                                  f"expected {want_launches}")
+        if pa.launches - b0 != cfg.n_layers * steps:
+            raise AssertionError(f"{name}: {pa.launches - b0} kernel B launches, expected "
+                                 f"{cfg.n_layers} per step")
+        if len(eng._graphs) != (fused and dev.type == "cuda"):   # one chunk length
+            raise AssertionError(f"{name}: {len(eng._graphs)} graphs captured")
         if kw.get("fastpath") and tot["fastpath_hits"] <= 0:
             raise AssertionError(f"{name}: the slab served no page")
         if kw.get("magazines") and tot["magazine_hits"] <= 0:
             raise AssertionError(f"{name}: the magazines served no page")
         row = dict(
-            run=name, S=S, layout=layout, decode_steps=steps, tokens=tokens, wall_s=wall,
+            run=name, S=S, layout=layout, fused=fused, decode_steps=steps, tokens=tokens,
+            wall_s=wall, first_chunk_ms=decode_ms[0],
             decode_ms_per_step=dec / steps, steady_decode_ms_per_step=steady,
             tokens_per_s=tokens / (dec / 1e3), wall_tokens_per_s=tokens / wall,
             alloc_pages=tot["alloc_pages"], freed_pages=tot["freed_pages"],
@@ -1409,12 +1435,28 @@ def phase_engine(torch, dev, report, state):
             f"{tot['magazine_spills']}")
         rows.append(row)
         state[name] = (list(eng.retired_order), dict(eng.done_steps), tot)
+        state["tokens", name] = {i: r.out_tokens for i, r in eng.completed.items()}
         if kw.get("ring_capacity"):
             state["ring_events"] = check_ring_run(eng, state, row)
         del eng
+        gc.collect()   # the engine's KV pool and graph
     # nodes are identical on valid traces, so the schedule is too
     if state["S4-bunch-packed"][:2] != state["S4-unpacked"][:2]:
         raise AssertionError("packed S=4 retirement order or steps differ from unpacked")
+    eager, fused = run_name(*EAGER_RUN, fused=False), run_name(*EAGER_RUN)
+    if state[fused] != state[eager] or state["tokens", fused] != state["tokens", eager]:
+        raise AssertionError("the fused S=1 run's schedule, counters or tokens differ "
+                             "from the eager run's")
+    e, f = rows[0], rows[1]
+    report["eager_vs_fused"] = dict(
+        eager_ms_per_step=e["steady_decode_ms_per_step"],
+        fused_ms_per_step=f["steady_decode_ms_per_step"],
+        eager_tokens_per_s=e["tokens_per_s"], fused_tokens_per_s=f["tokens_per_s"],
+        step_speedup=e["steady_decode_ms_per_step"] / f["steady_decode_ms_per_step"])
+    log(f"[engine] S=1 eager vs fused: steady {e['steady_decode_ms_per_step']:.3f} vs "
+        f"{f['steady_decode_ms_per_step']:.3f} ms/step, {e['tokens_per_s']:.1f} vs "
+        f"{f['tokens_per_s']:.1f} tokens/s decode; schedule, every counter and every "
+        f"token equal")
     launches = {"nbbs_pool_step": nbbs_alloc.launches,
                 "nbbs_pool_step_slab": nbbs_alloc.slab_launches,
                 "paged_attention": pa.launches}
@@ -1462,10 +1504,95 @@ def check_ring_run(eng, state, row):
     return events
 
 
+def device_busy(events):
+    """Union of the device intervals of `events`, in us."""
+    busy, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
+# the functions `engine_step` calls, timed on the host as spans of the
+# eager step's CPU profile (`record_function`), by the name the engine
+# module imports them under
+STEP_PARTS = ("nb_pool_alloc_pages", "nb_pool_alloc_pages_mag", "paged_decode_step",
+              "nb_pool_free_pages", "nb_pool_free_pages_mag", "pool_free_units",
+              "pool_mag_free_per_shard", "pool_largest_run", "home_shard")
+
+
+def eager_step_profile(torch, eng):
+    """Host time of one eager decode step by op and by part of the step:
+    a CPU-side `torch.profiler` window of `decode_steps(1)`, each of
+    STEP_PARTS wrapped in a `record_function` span."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.serve import jit_engine as je
+
+    def spanned(name, fn):
+        def run(*a, **kw):
+            with record_function(f"part:{name}"):
+                return fn(*a, **kw)
+        return run
+
+    saved = {n: getattr(je, n) for n in STEP_PARTS}
+    for n, fn in saved.items():
+        setattr(je, n, spanned(n, fn))
+    try:
+        unprofiled_ms = host_ms(torch, lambda: eng.decode_steps(1))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with record_function("part:step"):
+                eng.decode_steps(1)
+            profiled_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+    finally:
+        for n, fn in saved.items():
+            setattr(je, n, fn)
+    parts: dict = {}
+    for e in prof.events():
+        if e.name.startswith("part:") and str(e.device_type).endswith("CPU"):
+            parts[e.name[5:]] = parts.get(e.name[5:], 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    avg = prof.key_averages()
+    ops = sorted((e for e in avg if e.key.startswith("aten::")),
+                 key=lambda e: -e.self_cpu_time_total)
+    launches = sum(e.count for e in avg if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                      "cudaLaunchKernelExC"))
+    step_ms = parts.get("step", profiled_ms)
+    out = dict(
+        unprofiled_ms=unprofiled_ms, profiled_ms=profiled_ms, step_span_ms=step_ms,
+        aten_calls=sum(e.count for e in ops),
+        aten_self_cpu_ms=sum(e.self_cpu_time_total for e in ops) / 1e3,
+        kernel_launch_calls=launches,
+        parts_ms={k: v for k, v in parts.items() if k != "step"},
+        rest_ms=step_ms - sum(v for k, v in parts.items() if k != "step"),
+        top_ops=[(e.key, e.count, e.self_cpu_time_total / 1e3) for e in ops[:15]],
+    )
+    log(f"[profile] one eager step: {unprofiled_ms:.2f} ms without the profiler; on "
+        f"the host under it: {profiled_ms:.2f} ms ({step_ms:.2f} in the "
+        f"step span), {out['aten_calls']} aten calls taking {out['aten_self_cpu_ms']:.2f} "
+        f"ms of self CPU time, {launches} kernel launch calls")
+    for k, v in sorted(out["parts_ms"].items(), key=lambda kv: -kv[1]):
+        log(f"[profile]   part {k}: {v:.3f} ms")
+    log(f"[profile]   rest of the step (state updates, metrics, ring): "
+        f"{out['rest_ms']:.3f} ms")
+    for key, count, ms in out["top_ops"]:
+        log(f"[profile]   op {key}: {count} calls, {ms:.3f} ms self CPU")
+    return out
+
+
 def phase_profile(torch, dev, report, state):
-    """Where a steady decode step's time goes: a `torch.profiler` window
-    of 8 decode steps of the S=1 engine (after one warm chunk), its
-    device busy share, and the kernels by device time."""
+    """Where a decode step's time goes: a `torch.profiler` window of two
+    fused chunks of the S=1 engine (graph replays, after the warm-up and
+    capture chunk): the device busy ms per step and idle share, kernels
+    by device time and per step (kernel A 2, kernel B 32, counted from
+    the device events); then the host side of one eager step
+    (`eager_step_profile`)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -1480,25 +1607,27 @@ def phase_profile(torch, dev, report, state):
     for i, p, mn in state["trace"]:
         eng.submit(Request(i, p.copy(), mn))
     eng._admit()
-    eng.decode_steps(CHUNK)
+    eng.decode_steps(CHUNK, fused=True)   # warm-up and capture
     torch.cuda.synchronize()
-    steps = 8
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.decode_steps(steps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, end = 0.0, None
-    for a, b in spans:          # union of device intervals, in us
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
+    chunks = 2
+    steps = chunks * CHUNK
+    want = {"nbbs_step_kernel": 2, "paged_decode_kernel": cfg.n_layers}
+    for _ in range(3):   # a trace now and then comes back without its kernels
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(chunks):
+                eng.decode_steps(CHUNK, fused=True)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        counts = {k: sum(k in e.name for e in events) for k in want}
+        if counts == {k: n * steps for k, n in want.items()}:
+            break
+    else:
+        raise AssertionError(f"device events of kernels A and B in {steps} fused steps: "
+                             f"{counts}, expected {want} per step")
+    busy = device_busy(events)
     by_name: dict = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
@@ -1508,31 +1637,33 @@ def phase_profile(torch, dev, report, state):
                      ("paged_decode_kernel", "paged_attention")):
         hits = [e for e in events if key in e.name]
         ms = sum(e.time_range.end - e.time_range.start for e in hits) / 1e3
-        ours[tag] = dict(launches_per_step=len(hits) / steps,
-                         ms_per_step=ms / steps,
-                         ms_per_launch=ms / len(hits) if hits else None)
-    busy_step = busy / 1e3 / steps if events else None
-    unprofiled = report["engine"][0]["steady_decode_ms_per_step"]
+        ours[tag] = dict(launches_per_step=len(hits) / steps, ms_per_step=ms / steps,
+                         ms_per_launch=ms / len(hits))
+    busy_step = busy / 1e3 / steps
+    fused_step = report["eager_vs_fused"]["fused_ms_per_step"]
     out = dict(
-        steps=steps, wall_ms_per_step=wall_ms / steps,
+        steps=steps, chunks=chunks, wall_ms_per_step=wall_ms / steps,
         device_busy_ms_per_step=busy_step,
-        device_idle_share=(1 - busy / 1e3 / wall_ms) if events else None,
-        device_idle_share_vs_unprofiled_step=(
-            1 - busy_step / unprofiled) if events else None,
-        device_events=len(events), kernels=ours,
+        device_idle_share=1 - busy / 1e3 / wall_ms,
+        device_idle_share_vs_unprofiled_step=1 - busy_step / fused_step,
+        device_events=len(events), kernels_per_step=len(events) / steps, kernels=ours,
         top_device_ms_per_step=[(n, t / 1e3 / steps) for n, t in top],
     )
-    log(f"[profile] S=1 steady window: {out['wall_ms_per_step']:.2f} ms/step wall "
-        f"under the profiler ({unprofiled:.2f} without), device busy {busy_step} "
-        f"ms/step, idle share {out['device_idle_share']} (against the "
-        f"unprofiled step {out['device_idle_share_vs_unprofiled_step']})")
+    log(f"[profile] S=1 fused window ({chunks} graph replays of {CHUNK} steps): "
+        f"{out['wall_ms_per_step']:.3f} ms/step wall under the profiler "
+        f"({fused_step:.3f} without), device busy {busy_step:.3f} ms/step, idle share "
+        f"{out['device_idle_share']:.4f} (against the unprofiled step "
+        f"{out['device_idle_share_vs_unprofiled_step']:.4f}), "
+        f"{out['kernels_per_step']:.1f} kernels/step")
     for tag, k in ours.items():
         log(f"[profile]   {tag}: {k['launches_per_step']} launches/step, "
             f"{k['ms_per_step']:.4f} ms/step, {k['ms_per_launch']} ms/launch")
     for n, t in out["top_device_ms_per_step"]:
         log(f"[profile]   {t:8.3f} ms/step  {n[:90]}")
+    out["eager_step"] = eager_step_profile(torch, eng)
     report["profile"] = out
     del eng, params
+    gc.collect()
     torch.cuda.empty_cache()
 
 

@@ -1062,10 +1062,18 @@ template <bool PACKED, bool SHARED, bool SLAB>
 int launch(const Args& a, int smem_bytes, void* stream) {
   const int smem = SHARED ? smem_bytes : 0;
   if (SHARED) {
-    cudaError_t err = cudaFuncSetAttribute(
-        nbbs_step_kernel<PACKED, SHARED, SLAB>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    // raised per device to the largest size asked for so far, so that a
+    // launch captured into a CUDA graph makes no attribute call
+    static int allowed[64];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
+    if (dev >= 64 || smem > allowed[dev]) {
+      err = cudaFuncSetAttribute(nbbs_step_kernel<PACKED, SHARED, SLAB>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      if (dev < 64) allowed[dev] = smem;
+    }
   }
   nbbs_step_kernel<PACKED, SHARED, SLAB><<<1, THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();

@@ -110,6 +110,16 @@ def merge(acc: Metrics, new: Metrics) -> Metrics:
     return out
 
 
+def reduce_trajectory(traj: Metrics) -> Metrics:
+    """Collapse metrics stacked on a leading [T] axis (a decode chunk's
+    trajectory) to totals: counters/histograms sum over T, gauges keep
+    the final step's value."""
+    out: Metrics = {}
+    for name, v in traj.items():
+        out[name] = v[-1] if spec(name).kind == "gauge" else v.sum(dim=0, dtype=v.dtype)
+    return out
+
+
 def to_host(metrics: Metrics) -> Dict[str, object]:
     """One copy to the host; scalars -> int, vectors -> list."""
     out: Dict[str, object] = {}
@@ -128,9 +138,17 @@ def host_counters(values: Mapping[str, int], device="cuda") -> Metrics:
     }
 
 
+def hist_summary(name: str, counts) -> Dict[str, int]:
+    """Label histogram counts with their '<=edge' / 'inf' buckets."""
+    s = spec(name)
+    labels = [f"<={e}" for e in (s.buckets or ())] + ["inf"]
+    return {lab: int(c) for lab, c in zip(labels, counts)}
+
+
 __all__ = [
     "Metrics", "MetricSpec", "REGISTRY", "spec", "validate", "zeros",
-    "inc", "observe", "observe_many", "merge", "to_host", "host_counters",
+    "inc", "observe", "observe_many", "merge", "reduce_trajectory",
+    "to_host", "host_counters", "hist_summary",
 ]
 
 pack_slots = _schema.pack_slots

@@ -29,11 +29,24 @@ device and without a host sync:
 Kernel A launches per decode step: 2 without magazines, 3 with them.
 
 JAX threads a donated, immutable `EngineState` through a jitted step;
-here `EngineState` is a set of tensors that the step updates in place
-(the KV pool) or rebinds (the small per-lane registers).  PyTorch runs
-eagerly, so there is no compiled step to trace: `engine_step` and
-`engine_run` are plain functions.  The host syncs where the JAX shim
-does, at admission (free lanes, `admitted`) and at drain.
+here `EngineState` is a set of tensors that keep their addresses for
+the engine's life.  `engine_step` and `engine_run` (`num_steps` steps,
+JAX's `lax.scan` chunk) run on a shallow copy of the state, whose small
+per-lane registers the steps rebind, and copy the final tensors back
+into the state's own; the KV pool and the output tokens are written in
+place throughout, and the host helpers (`prefill_insert`,
+`clear_lanes`, admission) write in place too.
+
+`JitServeEngine.decode_steps(n, fused=True)` runs a chunk as one
+dispatch, as JAX's does.  On the card the first fused chunk of each
+`n` runs `engine_run` eagerly on a side stream (the warm-up: it builds
+the kernels and sets their attributes and cuBLAS's workspace), then
+captures it into a `torch.cuda.CUDAGraph` (`CAPTURE_COUNTS`); every
+later fused chunk of that `n` is one replay, with no host sync and no
+Python per op.  On the CPU a fused chunk is `engine_run` itself.  The
+device decides, as it does for every kernel wrapper; a failed capture
+or replay raises.  The host syncs where the JAX shim does, at admission
+(free lanes, `admitted`) and at drain.
 
 `JitServeEngine` logs its host phases (admission bursts, decode chunks,
 drains) as wall-clock spans, and `snapshot()` drains the metric totals,
@@ -43,8 +56,11 @@ the ring's surviving window and the spans into the format that
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import time
+from collections import Counter
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -68,6 +84,7 @@ from repro_torch.core.pool import (
     pool_largest_run,
     pool_mag_free_per_shard,
 )
+from repro_torch.kernels import counters as kcounters
 from repro_torch.obs import metrics as om
 from repro_torch.obs import ring as oring
 from repro_torch.obs.schema import ENGINE_METRICS
@@ -78,6 +95,12 @@ from repro_torch.serve.paged_decode import init_pool, paged_decode_step, serve_p
 Metrics = om.Metrics
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# CUDA graphs captured, keyed by (EngineConfig, chunk length) as JAX's
+# TRACE_COUNTS is by config: a fused chunk of a given length is captured
+# once per engine and replayed after, so tests can pin "captures once,
+# then stable" by watching this counter.
+CAPTURE_COUNTS: Counter = Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,7 +170,9 @@ class EngineConfig:
 
 @dataclasses.dataclass
 class EngineState:
-    """Device-resident engine state (updated in place by `engine_step`)."""
+    """Device-resident engine state.  `engine_step`, `engine_run` and the
+    host helpers update its tensors in place: they keep their addresses,
+    which a captured decode chunk reads and writes."""
 
     trees: torch.Tensor       # int32[S, n_state_words] pool tree state words
     kv_k: torch.Tensor        # [L, P+1, page, Hkv, D] page pool + sink page
@@ -168,7 +193,7 @@ class EngineState:
     ring: oring.EventRing     # event ring (capacity 0 = counts only)
     mag_pages: torch.Tensor   # int32[B, mag_cap] per-lane magazine, -1 empty
     mag_depth: torch.Tensor   # int32[B]     magazine fill depth
-    logits: Optional[torch.Tensor] = None  # float32[B, V] of the last step
+    logits: torch.Tensor      # float32[B, V] of the last step
 
 
 def _engine_mags(state: EngineState) -> MagazineState:
@@ -209,6 +234,7 @@ def init_engine_state(ecfg: EngineConfig, device="cuda") -> EngineState:
         step_no=full((), 0),
         ring=oring.make_ring(ecfg.ring_capacity, device),
         **_init_mag_fields(ecfg, device),
+        logits=torch.zeros((B, arch.vocab_size), dtype=torch.float32, device=device),
     )
 
 
@@ -237,9 +263,49 @@ def global_tables(ecfg: EngineConfig, page_shard, page_off) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    if src is not dst:
+        dst.copy_(src)
+
+
+def _write_back(state: EngineState, work: EngineState) -> None:
+    """Copy the final tensors of steps run on `work`, a shallow copy of
+    `state`, into `state`'s own."""
+    for f in dataclasses.fields(EngineState):
+        old, new = getattr(state, f.name), getattr(work, f.name)
+        if f.name == "ring":
+            _assign(old.buf, new.buf)
+            _assign(old.count, new.count)
+        else:
+            _assign(old, new)
+
+
 def engine_step(ecfg: EngineConfig, params: dict, state: EngineState) -> Metrics:
     """One decode iteration (alloc + decode + free) over every lane.
-    Updates `state` and returns this step's metrics; no host sync."""
+    Updates `state` in place and returns this step's metrics; no host
+    sync."""
+    work = dataclasses.replace(state)
+    m = _step(ecfg, params, work)
+    _write_back(state, work)
+    return m
+
+
+def engine_run(ecfg: EngineConfig, params: dict, state: EngineState,
+               num_steps: int) -> Metrics:
+    """`num_steps` decode iterations (JAX's `lax.scan` chunk), updating
+    `state` in place once at the end.  Returns the chunk's metrics as
+    JAX's trajectory reduces: one stack per metric, counters and
+    histograms summed over the steps, gauges from the last step."""
+    work = dataclasses.replace(state)
+    traj = [_step(ecfg, params, work) for _ in range(num_steps)]
+    _write_back(state, work)
+    return om.reduce_trajectory({k: torch.stack([m[k] for m in traj]) for k in traj[0]})
+
+
+def _step(ecfg: EngineConfig, params: dict, state: EngineState) -> Metrics:
+    """The step on a working copy: the KV pool, block-table columns,
+    output tokens and step counter are written in place, the other
+    registers rebound."""
     pcfg = ecfg.pool_config()
     B, MP, MO = ecfg.max_batch, ecfg.max_lane_pages, ecfg.max_out
     pt = ecfg.page_tokens
@@ -385,16 +451,6 @@ def engine_step(ecfg: EngineConfig, params: dict, state: EngineState) -> Metrics
     return m
 
 
-def engine_run(ecfg: EngineConfig, params: dict, state: EngineState,
-               num_steps: int) -> Metrics:
-    """`num_steps` decode iterations; returns their accumulated metrics
-    (counters and histograms summed, gauges from the last step)."""
-    acc = _zero_metrics(ecfg, state.ctx.device)
-    for _ in range(num_steps):
-        acc = om.merge(acc, engine_step(ecfg, params, state))
-    return acc
-
-
 # ---------------------------------------------------------------------------
 # Admission-boundary helpers (the host calls these between decode bursts)
 # ---------------------------------------------------------------------------
@@ -490,13 +546,13 @@ def prefill_insert(
 
 
 def clear_lanes(ecfg: EngineConfig, state: EngineState, mask: torch.Tensor) -> None:
-    """Reset drained lanes to empty (their pages were already freed by
-    the retirement burst inside `engine_step`)."""
-    state.seq_id = torch.where(mask, -1, state.seq_id).to(I32)
-    state.ctx = torch.where(mask, 0, state.ctx).to(I32)
-    state.n_out = torch.where(mask, 0, state.n_out).to(I32)
-    state.overflowed = state.overflowed & ~mask
-    state.done_step = torch.where(mask, -1, state.done_step).to(I32)
+    """Reset drained lanes to empty, in place (their pages were already
+    freed by the retirement burst inside `engine_step`)."""
+    state.seq_id.masked_fill_(mask, -1)
+    state.ctx.masked_fill_(mask, 0)
+    state.n_out.masked_fill_(mask, 0)
+    state.overflowed.masked_fill_(mask, False)
+    state.done_step.masked_fill_(mask, -1)
 
 
 def _next_pow2(n: int) -> int:
@@ -508,10 +564,20 @@ def _next_pow2(n: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass
+class _ChunkGraph:
+    """A captured fused chunk: its graph, its metric outputs (rewritten
+    by every replay) and the kernel launches of one replay."""
+
+    graph: "torch.cuda.CUDAGraph"
+    metrics: Metrics
+    launches: kcounters.Counts
+
+
 class JitServeEngine:
     """Request-queue shim around `engine_step`: admission and drain on
     the host, every per-token step on the device (`decode_steps` runs
-    whole chunks with no host sync)."""
+    whole chunks with no host sync; `fused=True` as one dispatch)."""
 
     def __init__(
         self,
@@ -577,6 +643,7 @@ class JitServeEngine:
             "admit_magazine_spills": 0,
         }
         self.acc = _zero_metrics(self.ecfg, self.device)
+        self._graphs: Dict[int, _ChunkGraph] = {}   # chunk length -> graph
         # host-phase span log for the trace exporter: wall-clock windows
         # of admissions, decode chunks and drains, relative to
         # construction
@@ -627,10 +694,14 @@ class JitServeEngine:
                 continue
             need = self._pages_for(len(req.prompt) - 1)
             st = self.state
-            (st.trees, st.mag_pages, st.mag_depth, shards, offs, admitted,
+            (trees, mag_pages, mag_depth, shards, offs, admitted,
              _, fp_h, fp_s, mag_sp) = admit_pages(
                 self.ecfg, st.trees, st.mag_pages, st.mag_depth, req.req_id, need
             )
+            # in place: a captured decode chunk reads these tensors
+            _assign(st.trees, trees)
+            _assign(st.mag_pages, mag_pages)
+            _assign(st.mag_depth, mag_depth)
             # admission syncs on `admitted` anyway
             if self.ecfg.fastpath:
                 self.stats["admit_fastpath_hits"] += int(fp_h)
@@ -672,16 +743,70 @@ class JitServeEngine:
         self._lane_of[req.req_id] = lane
 
     # -- the device loop ----------------------------------------------
-    def decode_steps(self, n: int) -> None:
-        """Run n decode iterations with no host sync.  Eager PyTorch has
-        no scan to dispatch, so a chunk is `engine_run`'s plain loop (the
-        span records no `fused` flag, which JAX's does)."""
+    def decode_steps(self, n: int, *, fused: bool = False) -> None:
+        """Run n decode iterations with no host sync.  With `fused=True`
+        the whole chunk is one dispatch: on the card the replay of its
+        captured CUDA graph (`_fused_chunk`)."""
         t0, step0 = self._now(), self.stats["steps"]
-        self.acc = om.merge(
-            self.acc, engine_run(self.ecfg, self.params, self.state, n)
-        )
+        if fused:
+            self.acc = om.merge(self.acc, self._fused_chunk(n))
+        else:
+            for _ in range(n):
+                self.acc = om.merge(
+                    self.acc, engine_step(self.ecfg, self.params, self.state)
+                )
         self.stats["steps"] += n
-        self._record_span("decode", t0, step0, n=n)
+        self._record_span("decode", t0, step0, n=n, fused=int(fused))
+
+    def _fused_chunk(self, n: int) -> Metrics:
+        """The metrics of one fused chunk of n steps: `engine_run` on the
+        CPU; on the card a replay of the chunk's graph (captured by the
+        first chunk of each n), whose metric outputs the next replay
+        overwrites, so they are cloned.  The kernels' launch counters
+        gain the graph's launches at every replay."""
+        if self.device.type != "cuda":
+            return engine_run(self.ecfg, self.params, self.state, n)
+        g = self._graphs.get(n)
+        if g is None:
+            return self._capture(n)
+        g.graph.replay()
+        kcounters.add(g.launches)
+        return {k: v.clone() for k, v in g.metrics.items()}
+
+    def _capture(self, n: int) -> Metrics:
+        """The first fused chunk of n steps on the card: `engine_run`
+        eagerly on a side stream, then captured into a CUDA graph (the
+        capture launches nothing and leaves the state as it is).
+        Returns the eager chunk's metrics."""
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            warm = engine_run(self.ecfg, self.params, self.state, n)
+            before = kcounters.launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            # the collector stays off: another engine's graph freed while
+            # this one captures would end the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            graph.capture_begin()
+            try:
+                out = engine_run(self.ecfg, self.params, self.state, n)
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            else:
+                graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
+            launches = kcounters.since(before)
+            kcounters.add(launches, -1)  # the capture launched nothing
+        cur.wait_stream(side)
+        CAPTURE_COUNTS[(self.ecfg, n)] += 1
+        self._graphs[n] = _ChunkGraph(graph, out, launches)
+        return warm
 
     def _drain(self) -> List[int]:
         """Collect retired lanes (one host sync), clear them, and return
@@ -737,7 +862,7 @@ class JitServeEngine:
             if not self.running:
                 break
             n = min(chunk, max_steps - steps)
-            self.decode_steps(n)
+            self.decode_steps(n, fused=chunk > 1)
             steps += n
 
     # -- observability -------------------------------------------------

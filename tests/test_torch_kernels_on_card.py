@@ -523,10 +523,10 @@ def test_engine_decode_has_no_host_sync(cuda_device, layout, frontends):
                          n_shards=2, layout=layout, **frontends)
     decode = eng.decode_steps
 
-    def decode_without_sync(n):
+    def decode_without_sync(n, **kw):
         torch.cuda.set_sync_debug_mode("error")
         try:
-            decode(n)
+            decode(n, **kw)
         finally:
             torch.cuda.set_sync_debug_mode("default")
 

@@ -9,8 +9,8 @@ stablelm-3b's reduced config): the drained events must be equal field
 for field, the ring counters and every other total equal, each
 snapshot must pass both packages' `validate_snapshot`, and its Chrome
 trace `validate_trace`.  Spans carry wall-clock times, so only their
-phases, steps and extra fields are compared (the port's decode span has
-no `fused` flag: it has no fused dispatch).
+phases, steps and extra fields (the decode span's `fused` flag
+included) are compared.
 """
 
 import jax
@@ -121,7 +121,7 @@ def _trace(seed, vocab, n=8, max_prompt=14, max_new=8):
 
 
 def _spans(snap):
-    return [{k: v for k, v in sp.items() if k not in ("t0", "t1", "fused")}
+    return [{k: v for k, v in sp.items() if k not in ("t0", "t1")}
             for sp in snap["spans"]]
 
 
