@@ -87,11 +87,34 @@ Phases (any failure fails the run, exit code 1):
      depend on tokens, so the retirement order and steps and every
      `stat_totals()` counter must equal phase 5's, the packed run's too,
      and the ring run's drained events must equal the card's;
-  7. full-width fp32 correctness: one request (prompt 6, 8 new tokens)
-     against greedy decoding through the port's dense `prefill` over the
-     growing sequence (no kernel on that path): logits within 1e-3 at
-     each step, tokens equal wherever the top-2 gap exceeds 1e-3;
-  8. flash: with its launch count at 0, the differentiable
+  7. host_engine: the host-driven serving path, the launch counts at 0
+     before each run and read after it: `python -m
+     repro_torch.launch.serve --arch stablelm-3b` in-process at full
+     width in bf16 with the launcher's defaults (16 requests, 8 new
+     tokens, 256 pages of 8, 8 lanes): all served, the pool fully
+     coalesced, kernel B 32 launches per step and kernel A none (the
+     host loop allocates through the paper's `NBBSRef` trees); then
+     `ServeEngine` on phase 5's trace at 4096 pages of 4, 64 running
+     sequences, tables of 32 pages, at S=1 and at S=4 with the fastpath
+     and magazines 4: every budget served, every shard's tree consistent
+     and fully coalesced, `stats`, retirement order and
+     `fragmentation()` equal to a CPU replay at the reduced config, ms
+     per decode step and tokens/s beside phase 5's; kernel B against its
+     plain version and timed on the inputs these runs gave it; then the
+     port's `HostOracleEngine` (host Python, no model, no code shared
+     with the jit engine) replays every fused run of phase 5: retirement
+     order and steps and its `stat_totals()` equal; and one more fused
+     run (S=4 packed, fastpath, magazines 4, 16 arrivals per chunk) in
+     lockstep with it, chunk by chunk: every running sequence's block
+     table page for page and the free pages after each admission, the
+     free pages of each shard at the end;
+  8. full-width fp32 correctness: one request (prompt 6, 8 new tokens)
+     through the jit engine and through `ServeEngine`, each against
+     greedy decoding through the port's dense `prefill` over its growing
+     sequence (no kernel on that path): the jit engine's logits within
+     1e-3 at each step, both engines' tokens equal wherever the top-2
+     gap exceeds 1e-3;
+  9. flash: with its launch count at 0, the differentiable
      `ops.flash_attention` (kernel 5 forward) at full attention width in
      bf16, B=1: stablelm-3b (32/32 heads, D=80, S=4096, causal),
      phi3-medium-14b (40/10, D=128, S=4096, causal), gemma2-27b global
@@ -1261,7 +1284,7 @@ def phase_single_tree(torch, dev, report, state):
 
 
 # ---------------------------------------------------------------------------
-# Phases 5-7: the engine
+# Phases 5, 6 and 8: the jit engine
 # ---------------------------------------------------------------------------
 
 
@@ -1697,12 +1720,348 @@ def phase_cpu_trace(torch, report, state):
     report["cpu_trace"] = rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 7 (host_engine): the host-loop engine and the oracle of the jit engine
+# ---------------------------------------------------------------------------
+
+# ServeEngine at the serving geometry: 4096 pages of 4, 64 running
+# sequences, block tables cut to the 32 pages a lane holds at most
+HOST_GEOM = dict(num_pages=4096, page_tokens=4, max_batch=64, max_table_pages=32)
+HOST_RUNS = ((1, {}), (4, {"fastpath": True, "magazines": 4}))
+LOCKSTEP_RUN = (4, "bunch-packed", {"fastpath": True, "magazines": 4}, 16)
+
+
+class KernelBInputs:
+    """Stands in for `ops.paged_attention` while a host-loop run serves:
+    counts the calls and keeps the inputs of the last call with the most
+    rows (references only: a layer's pool views, the step's tables and
+    lengths)."""
+
+    def __init__(self, ops):
+        self.ops, self.fn, self.best, self.calls = ops, ops.paged_attention, None, 0
+
+    def __enter__(self):
+        self.ops.paged_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.paged_attention = self.fn
+
+    def __call__(self, q, k, v, tables, lens, softcap=None):
+        self.calls += 1
+        # no sync here: the last call with the most rows is kept
+        if self.best is None or q.shape[0] >= self.best[0]:
+            self.best = (q.shape[0], (q, k, v, tables, lens, softcap))
+        return self.fn(q, k, v, tables, lens, softcap=softcap)
+
+
+def host_attention_row(torch, pa, name, inputs, launches):
+    """Kernel B on inputs the host loop gave it, against its plain
+    version, timed as phase attention times its rows."""
+    q, k, v, tables, lens, softcap = inputs
+    out = pa.paged_attention(q, k, v, tables, lens, softcap=softcap)
+    want = pa.paged_attention_plain(q, k, v, tables, lens, softcap=softcap)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs()
+    slack = float((err / out_limit(torch, want)).max())
+    if not (slack <= 1.0 and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"kernel B disagrees with its plain version at {name}: "
+                             f"worst element at {slack:.3f} of its limit")
+    bound_ms, bound_by = attention_bound(torch, q, k, tables, lens)
+    ms = attention_ms(torch, pa, q, k, v, tables, lens, softcap)
+    row = dict(case=name, dtype=str(q.dtype).replace("torch.", ""), B=q.shape[0],
+               Hq=q.shape[1], Hkv=k.shape[2], D=q.shape[2], page=k.shape[1],
+               pages=k.shape[0], table_width=tables.shape[1],
+               live_rows=int((lens > 0).sum()), context_tokens=int(lens.sum()),
+               max_abs_err=float(err.max()), err_over_limit=slack, ms=ms,
+               plain_ms=cuda_ms(torch, lambda: pa.paged_attention_plain(
+                   q, k, v, tables, lens, softcap=softcap), reps=5),
+               bound_ms=bound_ms, bound_by=bound_by, over_bound=ms / bound_ms,
+               launches=launches)
+    log(f"[host_engine] kernel B at {name} ({row['dtype']}): B={row['B']} page {row['page']} table "
+        f"{row['table_width']} ({row['live_rows']} live rows, {row['context_tokens']} "
+        f"tokens): worst element at {slack:.3f} of its limit; kernel {ms:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{row['over_bound']:.2f}x; {launches} launches on the path")
+    return row
+
+
+def run_host_engine(torch, cfg, params, dev, dtype, S, trace, **kw):
+    """`ServeEngine` over `trace` (every request at once) to completion.
+    Returns (engine, wall s, prefill s, decode ms of each step); each
+    prefill and each step ends in its logits' copy to the host, a
+    sync."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, dtype=dtype, device=dev, n_shards=S, **HOST_GEOM, **kw)
+    prefill, step, spent, step_ms = eng._prefill_into_pages, eng.step, [0.0], []
+
+    def timed_prefill(reqs):
+        t = time.perf_counter()
+        prefill(reqs)
+        spent[0] += time.perf_counter() - t
+
+    def timed_step():
+        t, p = time.perf_counter(), spent[0]
+        out = step()
+        step_ms.append((time.perf_counter() - t - (spent[0] - p)) * 1e3)
+        return out
+
+    eng._prefill_into_pages, eng.step = timed_prefill, timed_step
+    for i, p, mn in trace:
+        eng.submit(Request(i, p.copy(), mn))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_to_completion()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0, spent[0], step_ms
+
+
+def check_host_engine(eng, trace, kw, name):
+    """Every request served its budget, every shard's tree consistent and
+    the pool fully coalesced: what a fresh manager of the same options
+    reports (magazine stashes spilled back first)."""
+    from repro_torch.memory.kv_cache import PagedKVManager
+
+    for i, _, mn in trace:
+        if len(eng.completed[i].out_tokens) != mn:
+            raise AssertionError(f"{name}: request {i} gave "
+                                 f"{len(eng.completed[i].out_tokens)} of {mn} tokens")
+    stashed = eng.kv.mag_stashed()
+    eng.kv._mag_spill_all()
+    for b in eng.kv.buddies:
+        b.check_invariants()
+    keys = ("free_pages", "used_pages", "largest_run", "per_shard_free",
+            "per_shard_largest_run")
+    fresh = PagedKVManager(HOST_GEOM["num_pages"], HOST_GEOM["page_tokens"],
+                           n_shards=eng.kv.n_shards, mag_lanes=HOST_GEOM["max_batch"],
+                           **kw).fragmentation()
+    frag = eng.kv.fragmentation()
+    if any(frag[k] != fresh[k] for k in keys) or frag["free_pages"] != HOST_GEOM["num_pages"]:
+        raise AssertionError(f"{name}: the pool did not coalesce: "
+                             f"{ {k: frag[k] for k in keys} }")
+    return stashed
+
+
+def oracle_replay(S, trace, per_chunk, kw):
+    """The port's `HostOracleEngine` over phase engine's arrival pattern
+    and decode chunks, at its geometry (no model)."""
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.oracle import HostOracleEngine
+
+    orc = HostOracleEngine(n_shards=S, **GEOM, **{k: v for k, v in kw.items()
+                                                  if k in ("fastpath", "magazines")})
+    pending = list(trace)
+    while True:
+        for i, p, mn in pending[:per_chunk or len(pending)]:
+            orc.submit(Request(i, p.copy(), mn))
+        del pending[:per_chunk or len(pending)]
+        orc.run_to_completion(max_steps=CHUNK if pending else 10_000, chunk=CHUNK)
+        if not pending:
+            return orc
+
+
+def oracle_lockstep(torch, cfg, params, dev, trace):
+    """One more fused jit-engine run (S=4 packed, fastpath, magazines 4,
+    16 arrivals per chunk) beside the oracle, chunk by chunk: after every
+    admission the running set, every running sequence's block table and
+    the free pages equal; at the end the retirements, the counters and
+    the free pages of each shard."""
+    from repro_torch.core.magazine import MagazineState
+    from repro_torch.core.pool import pool_free_units, pool_mag_free_per_shard
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.jit_engine import JitServeEngine, global_tables
+    from repro_torch.serve.oracle import HostOracleEngine
+
+    S, layout, kw, per_chunk = LOCKSTEP_RUN
+    eng = JitServeEngine(cfg, params, dtype=torch.bfloat16, device=dev, n_shards=S,
+                         layout=layout, **GEOM, **kw)
+    orc = HostOracleEngine(n_shards=S, **GEOM, **kw)
+    pending, chunks, tables_checked = list(trace), 0, 0
+    while True:
+        for i, p, mn in pending[:per_chunk]:
+            eng.submit(Request(i, p.copy(), mn))
+            orc.submit(Request(i, p.copy(), mn))
+        del pending[:per_chunk]
+        eng._drain(), eng._admit()
+        orc._drain(), orc._admit()
+        if sorted(eng.running) != sorted(orc.running):
+            raise AssertionError(f"lockstep chunk {chunks}: running sets differ")
+        if not eng.running and not eng.waiting and not pending:
+            break
+        tables = global_tables(eng.ecfg, eng.state.page_shard, eng.state.page_off).cpu()
+        for sid, lane in eng._lane_of.items():
+            if tables[lane].tolist() != orc.block_table(sid).tolist():
+                raise AssertionError(f"lockstep chunk {chunks}: sequence {sid}'s table "
+                                     "differs from the oracle's")
+            tables_checked += 1
+        if eng.device_free_pages() != orc.free_pages():
+            raise AssertionError(f"lockstep chunk {chunks}: free pages "
+                                 f"{eng.device_free_pages()} != {orc.free_pages()}")
+        eng.decode_steps(CHUNK, fused=True)
+        orc.decode_steps(CHUNK)
+        chunks += 1
+    pcfg = eng.ecfg.pool_config()
+    per_shard = (pool_free_units(pcfg, eng.state.trees) + pool_mag_free_per_shard(
+        pcfg, MagazineState(eng.state.mag_pages, eng.state.mag_depth))).tolist()
+    tot, otot = eng.stat_totals(), orc.stat_totals()
+    same = dict(retired_order=eng.retired_order == orc.retired_order,
+                done_steps=eng.done_steps == orc.done_steps,
+                stat_totals=all(tot[k] == v for k, v in otot.items()),
+                free_per_shard=per_shard == orc.pool.per_shard_free())
+    if not all(same.values()) or len(eng.completed) != len(trace):
+        raise AssertionError(f"lockstep run differs from the oracle: {same}")
+    orc.pool.check_invariants()
+    return dict(run=run_name(*LOCKSTEP_RUN), chunks=chunks, tables_checked=tables_checked,
+                per_shard_free=per_shard, magazine_hits=otot["magazine_hits"],
+                fastpath_hits=otot["fastpath_hits"], **same)
+
+
+def phase_host_engine(torch, dev, report, state):
+    """The host-loop serving path on the card: the launcher, `ServeEngine`
+    at the serving geometry (against its CPU replay), kernel B at the
+    shapes it gets there; then the port's oracle against every fused
+    jit-engine run of phase engine, and one run in lockstep."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import nbbs_alloc, ops, paged_attention as pa
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config("stablelm-3b")
+    out = {}
+    # -- 1. the launcher, in-process, as a user runs it --------------------
+    nbbs_alloc.launches, pa.launches = 0, 0
+    buf = io.StringIO()
+    with KernelBInputs(ops) as rec, contextlib.redirect_stdout(buf):
+        launch.main(["--arch", "stablelm-3b"])
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"[host_engine] python -m repro_torch.launch.serve --arch stablelm-3b: {line}")
+    steps, kv = line["engine_stats"]["steps"], line["kv"]
+    n_req, max_new, pages = 16, 8, 256   # the launcher's defaults
+    launches = {"nbbs_pool_step": nbbs_alloc.launches, "paged_attention": pa.launches}
+    checks = dict(
+        completed=line["completed"] == n_req,
+        generated_tokens=line["generated_tokens"] == n_req * max_new,
+        coalesced=kv["free_pages"] == kv["largest_run"] == pages,
+        kernel_b=launches["paged_attention"] == cfg.n_layers * steps == rec.calls,
+        no_kernel_a=launches["nbbs_pool_step"] == 0,
+    )
+    if not all(checks.values()):
+        raise AssertionError(f"launcher: {checks}, launches {launches}")
+    out["launcher"] = dict(line, launches=launches, checks=checks)
+    att_rows = [host_attention_row(torch, pa, "the launcher's shape", rec.best[1],
+                                   launches["paged_attention"])]
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 2. ServeEngine at the serving geometry ----------------------------
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                         dtype=torch.bfloat16)
+    small = cfg.reduced()
+    small_params = init_params(small, torch.Generator().manual_seed(0), device="cpu")
+    trace = state["trace"]
+    rows = []
+    for S, kw in HOST_RUNS:
+        name = f"S{S}" + "".join(f"-{k}" for k in sorted(kw))
+        nbbs_alloc.launches, pa.launches = 0, 0
+        with KernelBInputs(ops) as rec:
+            eng, wall, prefill_s, step_ms = run_host_engine(torch, cfg, params, dev,
+                                                            torch.bfloat16, S, trace, **kw)
+        launches = {"nbbs_pool_step": nbbs_alloc.launches, "paged_attention": pa.launches}
+        steps = eng.stats["steps"]
+        tokens = sum(len(r.out_tokens) for r in eng.completed.values())
+        if launches != {"nbbs_pool_step": 0, "paged_attention": cfg.n_layers * steps}:
+            raise AssertionError(f"host engine {name}: launches {launches} in {steps} steps")
+        order, frag = list(eng.completed), eng.kv.fragmentation()
+        stashed = check_host_engine(eng, trace, kw, name)
+        cpu, cpu_wall, _, _ = run_host_engine(torch, small, small_params,
+                                              torch.device("cpu"), torch.float32, S, trace,
+                                              **kw)
+        same = dict(stats=cpu.stats == eng.stats, retirement_order=list(cpu.completed) == order,
+                    fragmentation=cpu.kv.fragmentation() == frag)
+        if not all(same.values()):
+            raise AssertionError(f"host engine {name}: CPU replay differs: {same}")
+        row = dict(run=name, S=S, **kw, steps=steps, tokens=tokens, wall_s=wall,
+                   prefill_s=prefill_s, admitted=eng.stats["admitted"],
+                   ms_per_step=(wall - prefill_s) * 1e3 / steps,
+                   median_ms_per_step=sorted(step_ms)[len(step_ms) // 2],
+                   first_step_ms=step_ms[0], step_ms=step_ms,
+                   wall_ms_per_step=wall * 1e3 / steps,
+                   tokens_per_s=tokens / wall, decode_tokens_per_s=tokens / (wall - prefill_s),
+                   launches=launches, magazine_stashed_at_end=stashed,
+                   **{k: frag[k] for k in ("fastpath_hits", "magazine_hits")},
+                   cpu_replay_s=cpu_wall, cpu_replay_equal=same)
+        log(f"[host_engine] ServeEngine {name}: {steps} steps, {tokens} tokens in "
+            f"{wall:.2f} s (prefill {prefill_s:.2f} s): {row['ms_per_step']:.3f} ms per "
+            f"decode step (median {row['median_ms_per_step']:.3f}, first "
+            f"{row['first_step_ms']:.3f}), {row['tokens_per_s']:.1f} tokens/s ({row['decode_tokens_per_s']:.1f} "
+            f"without prefill); launches {launches}; fully coalesced; CPU replay "
+            f"({cpu_wall:.1f} s) equal: {same}")
+        rows.append(row)
+        if S == 1:
+            att_rows.append(host_attention_row(
+                torch, pa, "ServeEngine at the serving geometry", rec.best[1],
+                launches["paged_attention"]))
+        del eng, rec
+        gc.collect()
+    ev = report.get("eager_vs_fused", {})
+    out["serve_engine"] = rows
+    out["beside_jit_engine"] = dict(
+        host_loop_ms_per_step=rows[0]["ms_per_step"],
+        jit_eager_ms_per_step=ev.get("eager_ms_per_step"),
+        jit_fused_ms_per_step=ev.get("fused_ms_per_step"),
+        host_loop_tokens_per_s=rows[0]["decode_tokens_per_s"],
+        jit_eager_tokens_per_s=ev.get("eager_tokens_per_s"),
+        jit_fused_tokens_per_s=ev.get("fused_tokens_per_s"))
+    log(f"[host_engine] S=1 ms per decode step: host loop {rows[0]['ms_per_step']:.3f}, jit "
+        f"eager {ev.get('eager_ms_per_step')}, jit fused {ev.get('fused_ms_per_step')}")
+    out["attention"] = att_rows
+
+    # -- 3. the oracle against phase engine's fused runs --------------------
+    t0 = time.perf_counter()
+    oracle_rows = []
+    for S, layout, kw, per_chunk in ENGINE_RUNS:
+        name = run_name(S, layout, kw, per_chunk)
+        order, done, tot = state[name]
+        orc = oracle_replay(S, trace, per_chunk, kw)
+        otot = orc.stat_totals()
+        same = dict(retired_order=orc.retired_order == order, done_steps=orc.done_steps == done,
+                    stat_totals=all(tot[k] == v for k, v in otot.items()))
+        if not all(same.values()):
+            diff = {k: (v, tot[k]) for k, v in otot.items() if tot[k] != v}
+            raise AssertionError(f"{name}: the jit engine differs from the oracle: {same} {diff}")
+        oracle_rows.append(dict(run=name, **same))
+    replay_s = time.perf_counter() - t0
+    log(f"[host_engine] oracle: {len(oracle_rows)} fused jit-engine runs equal to "
+        f"HostOracleEngine (retirement order, steps, stat_totals) in {replay_s:.2f} s")
+    lock = oracle_lockstep(torch, cfg, params, dev, trace)
+    log(f"[host_engine] oracle lockstep {lock['run']}: {lock['chunks']} chunks, "
+        f"{lock['tables_checked']} block tables equal page for page, free pages per shard "
+        f"{lock['per_shard_free']}; slab hits {lock['fastpath_hits']}, magazine hits "
+        f"{lock['magazine_hits']}")
+    out["oracle"] = dict(runs=oracle_rows, replay_s=replay_s, lockstep=lock)
+    report["host_engine"] = out
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_fp32(torch, dev, report):
+    """One request (prompt 6, 8 new tokens) through the jit engine and
+    through the host-loop `ServeEngine` at full width in fp32, each held
+    against greedy decoding through the dense `prefill` over its own
+    growing sequence."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params, prefill
-    from repro_torch.serve.engine import Request
+    from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.jit_engine import JitServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1712,6 +2071,28 @@ def phase_fp32(torch, dev, report):
                          device=dev, dtype=torch.float32)
     rng = np.random.default_rng(6)
     prompt = rng.integers(0, cfg.vocab_size, size=6).astype(np.int32)
+    dense: dict = {}
+
+    def greedy(tokens, what):
+        """Near-ties (top-2 gap <= 1e-3) of the dense logits before each
+        token; raises where a token is not the dense argmax past one."""
+        ties = []
+        for i, tok in enumerate(tokens):
+            key = tuple(tokens[:i])
+            if key not in dense:
+                seq = torch.tensor(list(prompt) + tokens[:i], dtype=torch.long, device=dev)
+                dense[key] = prefill(cfg, params, {"tokens": seq[None]}, len(seq),
+                                     dtype=torch.float32)[0][0]
+            lg = dense[key]
+            top2 = torch.topk(lg, 2).values
+            gap = float(top2[0] - top2[1])
+            if gap > 1e-3 and int(lg.argmax()) != tok:
+                raise AssertionError(f"{what} step {i}: token {tok} != dense greedy "
+                                     f"{int(lg.argmax())}")
+            if gap <= 1e-3:
+                ties.append(i)
+        return ties
+
     eng = JitServeEngine(cfg, params, num_pages=64, page_tokens=4, max_batch=2,
                          max_lane_pages=16, max_out=8, dtype=torch.float32,
                          device=dev)
@@ -1723,30 +2104,34 @@ def phase_fp32(torch, dev, report):
         if eng.stats["steps"] > before:
             eng_logits.append(eng.state.logits[0].clone())
     tokens = eng.completed[0].out_tokens
-    worst, flips = 0.0, []
-    for i, tok in enumerate(tokens):
-        seq = torch.tensor(list(prompt) + tokens[:i], dtype=torch.long, device=dev)
-        lg, _ = prefill(cfg, params, {"tokens": seq[None]}, len(seq), dtype=torch.float32)
-        lg = lg[0]
-        diff = float((lg - eng_logits[i]).abs().max())
+    flips = greedy(tokens, "jit engine")
+    worst = 0.0
+    for i in range(len(tokens)):
+        diff = float((dense[tuple(tokens[:i])] - eng_logits[i]).abs().max())
         worst = max(worst, diff)
-        top2 = torch.topk(lg, 2).values
-        gap = float(top2[0] - top2[1])
-        if gap > 1e-3 and int(lg.argmax()) != tok:
-            raise AssertionError(f"step {i}: token {tok} != dense greedy {int(lg.argmax())}")
-        if gap <= 1e-3:
-            flips.append(i)
         if diff > 1e-3:
             raise AssertionError(f"step {i}: logits differ by {diff:.3e} > 1e-3")
     log(f"[fp32] full width, prompt 6 + {len(tokens)} tokens: max |logit diff| "
         f"{worst:.3e} (tol 1e-3), tokens equal to dense greedy; near-ties at {flips}")
-    report["fp32"] = dict(max_abs_logit_diff=worst, tokens=tokens, near_ties=flips)
-    del eng, params
+    del eng
+    host = ServeEngine(cfg, params, num_pages=64, page_tokens=4, max_batch=2,
+                       max_table_pages=16, dtype=torch.float32, device=dev)
+    host.submit(Request(0, prompt.copy(), max_new_tokens=8))
+    host.run_to_completion()
+    host_tokens = host.completed[0].out_tokens
+    if len(host_tokens) != 8:
+        raise AssertionError(f"ServeEngine gave {len(host_tokens)} of 8 tokens")
+    host_flips = greedy(host_tokens, "ServeEngine")
+    log(f"[fp32] ServeEngine, the same request: tokens equal to dense greedy; near-ties "
+        f"at {host_flips}; equal to the jit engine's: {host_tokens == tokens}")
+    report["fp32"] = dict(max_abs_logit_diff=worst, tokens=tokens, near_ties=flips,
+                          serve_engine_tokens=host_tokens, serve_engine_near_ties=host_flips)
+    del host, params, dense
     torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: flash attention (kernel 5) through ops.flash_attention
+# Phase 9: flash attention (kernel 5) through ops.flash_attention
 # ---------------------------------------------------------------------------
 
 FLASH_S = 4096         # stablelm-3b and phi3-medium rows
@@ -1977,11 +2362,12 @@ def main(argv) -> int:
         ("engine", lambda: phase_engine(torch, dev, report, state)),
         ("profile", lambda: phase_profile(torch, dev, report, state)),
         ("cpu_trace", lambda: phase_cpu_trace(torch, report, state)),
+        ("host_engine", lambda: phase_host_engine(torch, dev, report, state)),
         ("fp32", lambda: phase_fp32(torch, dev, report)),
         ("flash", lambda: phase_flash(torch, dev, report, state)),
     ]
     for pname, fn in phases:
-        if pname == "cpu_trace" and run_name(*ENGINE_RUNS[-1]) not in state:
+        if pname in ("cpu_trace", "host_engine") and run_name(*ENGINE_RUNS[-1]) not in state:
             failures.append((pname, "needs the engine phase"))
             continue
         t = time.perf_counter()

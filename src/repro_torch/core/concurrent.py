@@ -33,6 +33,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.bits import COAL_LEFT, COAL_RIGHT, OCC_LEFT, OCC_RIGHT
 from repro_torch.core.layout import (  # noqa: F401  (re-exported API)
     BUNCH_PACKED,
     UNPACKED,
@@ -182,6 +183,69 @@ def wavefront_alloc(cfg, tree, levels, active, max_rounds: int = 64):
         "logical_rmws": logical,
     }
     return tree, nodes, nodes > 0, stats
+
+
+# ---------------------------------------------------------------------------
+# Faithful sequential release (FREENODE + UNMARK, one node at a time)
+# ---------------------------------------------------------------------------
+
+
+def _free_one(cfg: TreeConfig, tree: list, n: int) -> int:
+    """Release node `n` (paper Algorithms 3-4) in `tree`, a list of the
+    tree's words, in place.  Returns the words written."""
+    ub = cfg.max_level
+    # -- phase 1: coalescing marks bottom-up --------------------------------
+    current, runner, writes = n >> 1, n, 0
+    while runner.bit_length() - 1 > ub:
+        old = tree[current]
+        tree[current] = old | (COAL_LEFT >> (runner & 1))
+        writes += 1
+        occ_buddy = (old & (OCC_RIGHT << (runner & 1))) != 0
+        coal_buddy = (old & (COAL_RIGHT << (runner & 1))) != 0
+        if occ_buddy and not coal_buddy:
+            break
+        runner, current = current, current >> 1
+    # -- phase 2: plain write, release the node (F19) ------------------------
+    tree[n] = 0
+    writes += 1
+    # -- phase 3: UNMARK (do-while) ------------------------------------------
+    if n.bit_length() - 1 == ub:
+        return writes
+    current = n
+    while True:
+        child, current = current, current >> 1
+        cv = tree[current]
+        if not cv & (COAL_LEFT >> (child & 1)):
+            return writes
+        nv = cv & ~((OCC_LEFT | COAL_LEFT) >> (child & 1))
+        tree[current] = nv
+        writes += 1
+        occ_buddy = (nv & (OCC_RIGHT << (child & 1))) != 0
+        if not (current.bit_length() - 1 > ub and not occ_buddy):
+            return writes
+
+
+def free_batch_sequential(cfg: TreeConfig, tree: torch.Tensor, nodes: torch.Tensor,
+                          active: torch.Tensor):
+    """Release a batch of nodes one at a time, in lane order (faithful
+    FREENODE/UNMARK scan; one legal linearization), on the host: the
+    differential oracle of `free_round`.  Lanes that are inactive or name
+    node 0 do nothing.  Returns (tree int32, writes int32 0-d).
+
+    Unpacked-only: the scan replays the paper's per-word bit protocol,
+    which has no meaning on packed state words."""
+    if not isinstance(cfg.layout, Unpacked):
+        raise ValueError(
+            "free_batch_sequential requires the Unpacked layout; "
+            f"got {cfg.layout!r} (use free_round / wavefront_free)"
+        )
+    words = tree.tolist()
+    writes = 0
+    for node, act in zip(nodes.tolist(), active.tolist()):
+        if act and node > 0:
+            writes += _free_one(cfg, words, node)
+    return (torch.tensor(words, dtype=I32, device=tree.device),
+            torch.tensor(writes, dtype=I32, device=tree.device))
 
 
 # ---------------------------------------------------------------------------

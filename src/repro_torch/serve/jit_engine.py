@@ -85,6 +85,7 @@ from repro_torch.core.pool import (
     pool_mag_free_per_shard,
 )
 from repro_torch.kernels import counters as kcounters
+from repro_torch.models.transformer import _check_dense
 from repro_torch.obs import metrics as om
 from repro_torch.obs import ring as oring
 from repro_torch.obs.schema import ENGINE_METRICS
@@ -604,6 +605,7 @@ class JitServeEngine:
         assert cfg.family in ("dense", "moe", "vlm", "audio"), (
             "paged engine covers attention families"
         )
+        _check_dense(cfg)  # before any pool is allocated
         if max_lane_pages is None:
             max_lane_pages = min(num_pages, 128)
         self.ecfg = EngineConfig(
