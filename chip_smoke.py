@@ -108,13 +108,36 @@ Phases (any failure fails the run, exit code 1):
      lockstep with it, chunk by chunk: every running sequence's block
      table page for page and the free pages after each admission, the
      free pages of each shard at the end;
-  8. full-width fp32 correctness: one request (prompt 6, 8 new tokens)
+  8. moe: phi3.5-moe-42b-a6.6b at full width (d_model 4096, 32/8 heads,
+     D=128, 16 experts of d_ff 6400, top-2, vocab 32064) cut from 32 to
+     16 layers (41.6 GB of bf16 weights; 32 would not fit), random
+     weights from seed 0, the launch counts at 0 before each run and
+     read after it: `JitServeEngine` fused at phase 5's geometry, at S=1
+     (every request at once) and at S=4 packed with the fastpath and
+     magazines 4 (16 arrivals per chunk), each chunk by chunk in
+     lockstep with `HostOracleEngine` (running sets, block tables page
+     for page, free pages) and equal at the end to phase 5's same-named
+     run (retirement order, steps, every counter); kernel A 2 (3) per
+     step and admission, kernel B 16 per step; every chunk under
+     torch.cuda.set_sync_debug_mode("error"); then 8 eager S=1 steps
+     (tokens equal to the fused run's), a profiler window of two fused
+     chunks (device busy, idle share, kernels A and B per step), the
+     expert FFN's device time per layer at the decode step's shapes
+     against its bounds (the drop-free capacity buffer's 1.29 TFLOP and
+     the routed rows'), `ServeEngine` at S=1 (64 lanes, tables of 32:
+     kernel B 16 per step, kernel A none, pool coalesced, schedule equal
+     to phase 7's), kernel B at 32/8 heads, D=128 against its plain
+     version, peak device memory, and decode consistency at full width
+     (prefill(17) against prefill(16) + decode_step, B=4: bf16 at 16
+     layers within 2^-2 of the logits' norm, fp32 at 8 layers within
+     1e-4);
+  9. full-width fp32 correctness: one request (prompt 6, 8 new tokens)
      through the jit engine and through `ServeEngine`, each against
      greedy decoding through the port's dense `prefill` over its growing
      sequence (no kernel on that path): the jit engine's logits within
      1e-3 at each step, both engines' tokens equal wherever the top-2
      gap exceeds 1e-3;
-  9. flash: with its launch count at 0, the differentiable
+  10. flash: with its launch count at 0, the differentiable
      `ops.flash_attention` (kernel 5 forward) at full attention width in
      bf16, B=1: stablelm-3b (32/32 heads, D=80, S=4096, causal),
      phi3-medium-14b (40/10, D=128, S=4096, causal), gemma2-27b global
@@ -1342,16 +1365,7 @@ def run_engine(torch, cfg, params, dev, dtype, S, trace, layout="unpacked", per_
     def timed(n, fused=False):
         if dev.type != "cuda":
             return inner(n, fused=fused and run_fused)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            inner(n, fused=fused and run_fused)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        b.record()
-        chunks.append((n, a, b))
+        no_sync_chunk(torch, inner, n, fused and run_fused, chunks)
 
     eng.decode_steps = timed
     pending = list(trace)
@@ -1609,32 +1623,24 @@ def eager_step_profile(torch, eng):
     return out
 
 
-def phase_profile(torch, dev, report, state):
-    """Where a decode step's time goes: a `torch.profiler` window of two
-    fused chunks of the S=1 engine (graph replays, after the warm-up and
-    capture chunk): the device busy ms per step and idle share, kernels
-    by device time and per step (kernel A 2, kernel B 32, counted from
-    the device events); then the host side of one eager step
-    (`eager_step_profile`)."""
+def fused_window(torch, eng, trace, n_layers, fused_step, tag):
+    """Admit `trace` into `eng`, run one fused chunk (warm-up and
+    capture), then a `torch.profiler` window of two graph replays: the
+    device busy ms per step and idle share, kernels by device time, and
+    kernels A and B per step (2 and `n_layers`, counted from the device
+    events); `fused_step` is the unprofiled ms per fused step."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
-    from repro_torch.models.transformer import init_params
     from repro_torch.serve.engine import Request
-    from repro_torch.serve.jit_engine import JitServeEngine
 
-    cfg = get_config("stablelm-3b")
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         device=dev, dtype=torch.bfloat16)
-    eng = JitServeEngine(cfg, params, dtype=torch.bfloat16, device=dev, **GEOM)
-    for i, p, mn in state["trace"]:
+    for i, p, mn in trace:
         eng.submit(Request(i, p.copy(), mn))
     eng._admit()
     eng.decode_steps(CHUNK, fused=True)   # warm-up and capture
     torch.cuda.synchronize()
     chunks = 2
     steps = chunks * CHUNK
-    want = {"nbbs_step_kernel": 2, "paged_decode_kernel": cfg.n_layers}
+    want = {"nbbs_step_kernel": 2, "paged_decode_kernel": n_layers}
     for _ in range(3):   # a trace now and then comes back without its kernels
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1656,14 +1662,13 @@ def phase_profile(torch, dev, report, state):
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     ours = {}
-    for key, tag in (("nbbs_step_kernel", "nbbs_pool_step"),
-                     ("paged_decode_kernel", "paged_attention")):
+    for key, name in (("nbbs_step_kernel", "nbbs_pool_step"),
+                      ("paged_decode_kernel", "paged_attention")):
         hits = [e for e in events if key in e.name]
         ms = sum(e.time_range.end - e.time_range.start for e in hits) / 1e3
-        ours[tag] = dict(launches_per_step=len(hits) / steps, ms_per_step=ms / steps,
-                         ms_per_launch=ms / len(hits))
+        ours[name] = dict(launches_per_step=len(hits) / steps, ms_per_step=ms / steps,
+                          ms_per_launch=ms / len(hits))
     busy_step = busy / 1e3 / steps
-    fused_step = report["eager_vs_fused"]["fused_ms_per_step"]
     out = dict(
         steps=steps, chunks=chunks, wall_ms_per_step=wall_ms / steps,
         device_busy_ms_per_step=busy_step,
@@ -1672,17 +1677,37 @@ def phase_profile(torch, dev, report, state):
         device_events=len(events), kernels_per_step=len(events) / steps, kernels=ours,
         top_device_ms_per_step=[(n, t / 1e3 / steps) for n, t in top],
     )
-    log(f"[profile] S=1 fused window ({chunks} graph replays of {CHUNK} steps): "
+    log(f"[{tag}] S=1 fused window ({chunks} graph replays of {CHUNK} steps): "
         f"{out['wall_ms_per_step']:.3f} ms/step wall under the profiler "
         f"({fused_step:.3f} without), device busy {busy_step:.3f} ms/step, idle share "
         f"{out['device_idle_share']:.4f} (against the unprofiled step "
         f"{out['device_idle_share_vs_unprofiled_step']:.4f}), "
         f"{out['kernels_per_step']:.1f} kernels/step")
-    for tag, k in ours.items():
-        log(f"[profile]   {tag}: {k['launches_per_step']} launches/step, "
+    for name, k in ours.items():
+        log(f"[{tag}]   {name}: {k['launches_per_step']} launches/step, "
             f"{k['ms_per_step']:.4f} ms/step, {k['ms_per_launch']} ms/launch")
     for n, t in out["top_device_ms_per_step"]:
-        log(f"[profile]   {t:8.3f} ms/step  {n[:90]}")
+        log(f"[{tag}]   {t:8.3f} ms/step  {n[:90]}")
+    return out
+
+
+def phase_profile(torch, dev, report, state):
+    """Where a decode step's time goes: a `torch.profiler` window of two
+    fused chunks of the S=1 engine (graph replays, after the warm-up and
+    capture chunk): the device busy ms per step and idle share, kernels
+    by device time and per step (kernel A 2, kernel B 32, counted from
+    the device events); then the host side of one eager step
+    (`eager_step_profile`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.jit_engine import JitServeEngine
+
+    cfg = get_config("stablelm-3b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev, dtype=torch.bfloat16)
+    eng = JitServeEngine(cfg, params, dtype=torch.bfloat16, device=dev, **GEOM)
+    fused_step = report["eager_vs_fused"]["fused_ms_per_step"]
+    out = fused_window(torch, eng, state["trace"], cfg.n_layers, fused_step, "profile")
     out["eager_step"] = eager_step_profile(torch, eng)
     report["profile"] = out
     del eng, params
@@ -1755,9 +1780,9 @@ class KernelBInputs:
         return self.fn(q, k, v, tables, lens, softcap=softcap)
 
 
-def host_attention_row(torch, pa, name, inputs, launches):
-    """Kernel B on inputs the host loop gave it, against its plain
-    version, timed as phase attention times its rows."""
+def host_attention_row(torch, pa, name, inputs, launches, tag="host_engine"):
+    """Kernel B on inputs the host loop (or phase `tag`) gave it, against
+    its plain version, timed as phase attention times its rows."""
     q, k, v, tables, lens, softcap = inputs
     out = pa.paged_attention(q, k, v, tables, lens, softcap=softcap)
     want = pa.paged_attention_plain(q, k, v, tables, lens, softcap=softcap)
@@ -1778,7 +1803,7 @@ def host_attention_row(torch, pa, name, inputs, launches):
                    q, k, v, tables, lens, softcap=softcap), reps=5),
                bound_ms=bound_ms, bound_by=bound_by, over_bound=ms / bound_ms,
                launches=launches)
-    log(f"[host_engine] kernel B at {name} ({row['dtype']}): B={row['B']} page {row['page']} table "
+    log(f"[{tag}] kernel B at {name} ({row['dtype']}): B={row['B']} page {row['page']} table "
         f"{row['table_width']} ({row['live_rows']} live rows, {row['context_tokens']} "
         f"tokens): worst element at {slack:.3f} of its limit; kernel {ms:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
@@ -1863,46 +1888,73 @@ def oracle_replay(S, trace, per_chunk, kw):
             return orc
 
 
-def oracle_lockstep(torch, cfg, params, dev, trace):
-    """One more fused jit-engine run (S=4 packed, fastpath, magazines 4,
-    16 arrivals per chunk) beside the oracle, chunk by chunk: after every
-    admission the running set, every running sequence's block table and
-    the free pages equal; at the end the retirements, the counters and
-    the free pages of each shard."""
+def no_sync_chunk(torch, decode_steps, n, fused, chunks):
+    """`decode_steps(n, fused=fused)` between two CUDA events (kept in
+    `chunks` as (n, start, end)), under
+    torch.cuda.set_sync_debug_mode("error"): a host sync raises."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decode_steps(n, fused=fused)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    b.record()
+    chunks.append((n, a, b))
+
+
+def lockstep(torch, cfg, params, dev, trace, run):
+    """One fused jit-engine run (`run` = (S, layout, front ends, arrivals
+    per chunk)) beside the oracle, chunk by chunk: after every admission
+    the running set, every running sequence's block table and the free
+    pages equal; at the end the retirements, the counters and the free
+    pages of each shard.  Every decode chunk runs through
+    `no_sync_chunk`.  Returns (engine, row, chunks, wall s without the
+    oracle and the checks)."""
     from repro_torch.core.magazine import MagazineState
     from repro_torch.core.pool import pool_free_units, pool_mag_free_per_shard
     from repro_torch.serve.engine import Request
     from repro_torch.serve.jit_engine import JitServeEngine, global_tables
     from repro_torch.serve.oracle import HostOracleEngine
 
-    S, layout, kw, per_chunk = LOCKSTEP_RUN
+    S, layout, kw, per_chunk = run
     eng = JitServeEngine(cfg, params, dtype=torch.bfloat16, device=dev, n_shards=S,
                          layout=layout, **GEOM, **kw)
     orc = HostOracleEngine(n_shards=S, **GEOM, **kw)
-    pending, chunks, tables_checked = list(trace), 0, 0
+    pending, chunks, tables_checked, check_s = list(trace), [], 0, 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     while True:
-        for i, p, mn in pending[:per_chunk]:
+        arrivals = pending[:per_chunk or len(pending)]
+        del pending[:per_chunk or len(pending)]
+        for i, p, mn in arrivals:
             eng.submit(Request(i, p.copy(), mn))
-            orc.submit(Request(i, p.copy(), mn))
-        del pending[:per_chunk]
         eng._drain(), eng._admit()
+        tc = time.perf_counter()
+        for i, p, mn in arrivals:
+            orc.submit(Request(i, p.copy(), mn))
         orc._drain(), orc._admit()
         if sorted(eng.running) != sorted(orc.running):
-            raise AssertionError(f"lockstep chunk {chunks}: running sets differ")
-        if not eng.running and not eng.waiting and not pending:
+            raise AssertionError(f"lockstep chunk {len(chunks)}: running sets differ")
+        done = not eng.running and not eng.waiting and not pending
+        if not done:
+            tables = global_tables(eng.ecfg, eng.state.page_shard, eng.state.page_off).cpu()
+            for sid, lane in eng._lane_of.items():
+                if tables[lane].tolist() != orc.block_table(sid).tolist():
+                    raise AssertionError(f"lockstep chunk {len(chunks)}: sequence {sid}'s "
+                                         "table differs from the oracle's")
+                tables_checked += 1
+            if eng.device_free_pages() != orc.free_pages():
+                raise AssertionError(f"lockstep chunk {len(chunks)}: free pages "
+                                     f"{eng.device_free_pages()} != {orc.free_pages()}")
+            orc.decode_steps(CHUNK)
+        check_s += time.perf_counter() - tc
+        if done:
             break
-        tables = global_tables(eng.ecfg, eng.state.page_shard, eng.state.page_off).cpu()
-        for sid, lane in eng._lane_of.items():
-            if tables[lane].tolist() != orc.block_table(sid).tolist():
-                raise AssertionError(f"lockstep chunk {chunks}: sequence {sid}'s table "
-                                     "differs from the oracle's")
-            tables_checked += 1
-        if eng.device_free_pages() != orc.free_pages():
-            raise AssertionError(f"lockstep chunk {chunks}: free pages "
-                                 f"{eng.device_free_pages()} != {orc.free_pages()}")
-        eng.decode_steps(CHUNK, fused=True)
-        orc.decode_steps(CHUNK)
-        chunks += 1
+        no_sync_chunk(torch, eng.decode_steps, CHUNK, True, chunks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - check_s
     pcfg = eng.ecfg.pool_config()
     per_shard = (pool_free_units(pcfg, eng.state.trees) + pool_mag_free_per_shard(
         pcfg, MagazineState(eng.state.mag_pages, eng.state.mag_depth))).tolist()
@@ -1914,9 +1966,10 @@ def oracle_lockstep(torch, cfg, params, dev, trace):
     if not all(same.values()) or len(eng.completed) != len(trace):
         raise AssertionError(f"lockstep run differs from the oracle: {same}")
     orc.pool.check_invariants()
-    return dict(run=run_name(*LOCKSTEP_RUN), chunks=chunks, tables_checked=tables_checked,
-                per_shard_free=per_shard, magazine_hits=otot["magazine_hits"],
-                fastpath_hits=otot["fastpath_hits"], **same)
+    row = dict(run=run_name(*run), chunks=len(chunks), tables_checked=tables_checked,
+               per_shard_free=per_shard, magazine_hits=otot["magazine_hits"],
+               fastpath_hits=otot["fastpath_hits"], **same)
+    return eng, row, chunks, wall
 
 
 def phase_host_engine(torch, dev, report, state):
@@ -2040,13 +2093,340 @@ def phase_host_engine(torch, dev, report, state):
     replay_s = time.perf_counter() - t0
     log(f"[host_engine] oracle: {len(oracle_rows)} fused jit-engine runs equal to "
         f"HostOracleEngine (retirement order, steps, stat_totals) in {replay_s:.2f} s")
-    lock = oracle_lockstep(torch, cfg, params, dev, trace)
+    lock = lockstep(torch, cfg, params, dev, trace, LOCKSTEP_RUN)[1]
     log(f"[host_engine] oracle lockstep {lock['run']}: {lock['chunks']} chunks, "
         f"{lock['tables_checked']} block tables equal page for page, free pages per shard "
         f"{lock['per_shard_free']}; slab hits {lock['fastpath_hits']}, magazine hits "
         f"{lock['magazine_hits']}")
     out["oracle"] = dict(runs=oracle_rows, replay_s=replay_s, lockstep=lock)
     report["host_engine"] = out
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase moe: phi3.5-moe at full width on both serving paths
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+# 16 of its 32 layers: 41.6 GB of bf16 weights (all 32 would be 83.2 GB,
+# over the card's 80 GB; full depth needs the model sharded)
+MOE_LAYERS = 16
+# phase engine's S=1 run (every request at once) and its S=4 packed run
+# with the fastpath and magazines 4, 16 requests arriving per chunk
+MOE_RUNS = (ENGINE_RUNS[0], LOCKSTEP_RUN)
+# prefill(S+1) against prefill(S) + decode_step, B=4, S=16, twice.  In
+# fp32 at full width cut to 8 layers (42 GB of weights) both paths
+# compute one function up to fp32 rounding: the limit is 1e-4 of the
+# logits' norm, the atol of JAX's test_serve_consistency at fp32.  In
+# bf16 at the phase's 16 layers the two paths round differently, and in
+# the deeper layers that flips the routing of some tokens: the same bf16
+# prefill run one row at a time instead of batched differs from itself
+# by 0.16 of the norm (fp32: 2.4e-6; this phase on an H100).  The bf16
+# limit, 2^-2 of the norm, is above that noise and far below sqrt(2),
+# the distance of two unrelated logit vectors of one norm
+MOE_CONSISTENCY = dict(B=4, S=16, bf16_rel_tol=2.0 ** -2, fp32_layers=8, fp32_rel_tol=1e-4)
+
+
+def expert_ffn_row(torch, dev, cfg, lp, T):
+    """One layer's expert work at the paged decode step's shapes (T
+    lanes, drop-free capacity T x top_k slots per expert), timed with
+    CUDA events (each call reads the layer's 2.5 GB of expert weights,
+    far beyond L2): the three batched GEMMs alone, the expert FFN
+    (`moe._swiglu_experts`: the GEMMs and the SwiGLU between them) and
+    the whole `apply_moe`; beside two bounds of the GEMMs: the capacity
+    buffer's work, and the routed rows' work alone."""
+    from repro_torch.models import moe as moe_lib
+
+    E, k, d, ff = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff
+    bf16 = torch.bfloat16
+    C = max(int(float(E) * T * k / E), 1)
+    g = torch.Generator(device=dev).manual_seed(3)
+    buf = torch.randn((E, C, d), generator=g, device=dev).to(bf16)
+    act = torch.randn((E, C, ff), generator=g, device=dev).to(bf16)
+    x = torch.randn((T, 1, d), generator=g, device=dev).to(bf16)
+    gemm_ms = cuda_ms(torch, lambda: (torch.matmul(buf, lp["w_gate"]),
+                                      torch.matmul(buf, lp["w_in"]),
+                                      torch.matmul(act, lp["w_out"])), reps=10)
+    ffn_ms = cuda_ms(torch, lambda: moe_lib._swiglu_experts(lp, buf, bf16), reps=10)
+    moe_ms = cuda_ms(torch, lambda: moe_lib.apply_moe(
+        lp, x, top_k=k, capacity_factor=float(E), dtype=bf16), reps=10)
+    w_bytes = 3 * E * d * ff * 2
+    io_bytes = (3 * E * C * d + 3 * E * C * ff) * 2   # buf, act in; g, h, out
+    cap_ops = 2 * 3 * E * C * d * ff
+    routed_ops = 2 * 3 * T * k * d * ff
+    t_ops, t_bytes = cap_ops / PEAK["bfloat16"], (w_bytes + io_bytes) / HBM_BPS
+    cap_bound = max(t_ops, t_bytes) * 1e3
+    routed_bound = max(routed_ops / PEAK["bfloat16"], w_bytes / HBM_BPS) * 1e3
+    n = cfg.n_layers
+    row = dict(T=T, top_k=k, experts=E, capacity=C, gemm_ms_per_layer=gemm_ms,
+               ffn_ms_per_layer=ffn_ms, apply_moe_ms_per_layer=moe_ms,
+               capacity_tflop=cap_ops / 1e12, capacity_bound_ms=cap_bound,
+               capacity_bound_by="operations" if t_ops >= t_bytes else "bytes",
+               routed_tflop=routed_ops / 1e12, routed_bound_ms=routed_bound,
+               weight_gb_per_layer=w_bytes / 1e9, gemm_ms_per_step=gemm_ms * n,
+               ffn_ms_per_step=ffn_ms * n, apply_moe_ms_per_step=moe_ms * n,
+               gemm_over_capacity_bound=gemm_ms / cap_bound,
+               gemm_tflops=cap_ops / gemm_ms / 1e9)
+    log(f"[moe] expert work per layer at T={T}, capacity {C} slots x {E} experts: "
+        f"3 GEMMs {gemm_ms:.4f} ms ({row['capacity_tflop']:.3f} TFLOP over the buffer, "
+        f"{row['gemm_tflops']:.1f} TFLOP/s; bound {cap_bound:.4f} ms by "
+        f"{row['capacity_bound_by']}, {row['gemm_over_capacity_bound']:.2f}x; the routed "
+        f"rows alone: {row['routed_tflop']:.4f} TFLOP, bound {routed_bound:.4f} ms); "
+        f"with the SwiGLU {ffn_ms:.4f} ms; whole apply_moe {moe_ms:.4f} ms; per step "
+        f"({n} layers): GEMMs {row['gemm_ms_per_step']:.3f} ms, FFN "
+        f"{row['ffn_ms_per_step']:.3f}, apply_moe {row['apply_moe_ms_per_step']:.3f}")
+    return row
+
+
+def moe_consistency(torch, dev, cfg, params, dtype, tol):
+    """The last logits of prefill(S+1) against prefill(S) + decode_step
+    (relative to their norm, within `tol`), beside the same prefill run
+    one row at a time (what rounding alone moves at this dtype) and the
+    layers where the last token's experts differ between the two paths
+    (`moe._route` is watched while they run)."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import decode_step, prefill
+
+    B, S = MOE_CONSISTENCY["B"], MOE_CONSISTENCY["S"]
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                         generator=torch.Generator().manual_seed(7)).to(dev)
+    route, picks = moe_lib._route, []
+
+    def watched(router, x, top_k):
+        out = route(router, x, top_k)
+        picks.append(out[1].reshape(-1, top_k).sort(-1).values)
+        return out
+
+    moe_lib._route = watched
+    try:
+        full, _ = prefill(cfg, params, {"tokens": toks}, S + 4, dtype=dtype)
+        full_picks = [p.reshape(B, S + 1, -1)[:, S] for p in picks]
+        _, cache = prefill(cfg, params, {"tokens": toks[:, :S]}, S + 4, dtype=dtype)
+        del picks[:]
+        dec, cache = decode_step(cfg, params, cache, toks[:, S], dtype=dtype)
+        flips = [int((a != b).any(-1).sum()) for a, b in zip(full_picks, picks)]
+    finally:
+        moe_lib._route = route
+    rows = torch.cat([prefill(cfg, params, {"tokens": toks[b:b + 1]}, S + 4,
+                              dtype=dtype)[0] for b in range(B)])
+    rel = float((dec - full).norm() / full.norm())
+    row = dict(dtype=str(dtype).replace("torch.", ""), n_layers=cfg.n_layers, B=B, S=S,
+               rel_err=rel, rel_tol=tol, max_abs_err=float((dec - full).abs().max()),
+               logit_scale=float(full.abs().max()),
+               argmax_equal=int((dec.argmax(-1) == full.argmax(-1)).sum()),
+               prefill_by_rows_rel=float((rows - full).norm() / full.norm()),
+               routing_flips_by_layer=flips)
+    row["ok"] = bool(rel <= tol and torch.isfinite(dec).all() and cache["pos"] == S + 1)
+    log(f"[moe] prefill({S + 1}) against prefill({S}) + decode_step, {cfg.n_layers} layers, "
+        f"B={B}, {row['dtype']}: relative error {rel:.3e} (limit {tol:.3e}), max |diff| "
+        f"{row['max_abs_err']:.3e} of logits up to {row['logit_scale']:.2f}, argmax equal "
+        f"in {row['argmax_equal']} of {B} rows; the prefill one row at a time differs from "
+        f"the batched one by {row['prefill_by_rows_rel']:.3e}; rows whose last token's "
+        f"experts differ between the paths, by layer: {flips}")
+    return row
+
+
+def phase_moe(torch, dev, report, state):
+    """phi3.5-moe-42b-a6.6b at full width, 16 of 32 layers, random bf16
+    weights: `JitServeEngine` fused at S=1 and at S=4 packed with the
+    front ends, each in lockstep with `HostOracleEngine` and equal to
+    phase engine's same-named run; 8 eager steps at S=1; a profiler window
+    of two fused chunks; the expert FFN's device time against its bounds;
+    `ServeEngine` at S=1; kernel B at the model's heads; decode
+    consistency (prefill(S+1) against prefill(S) + decode_step) in bf16
+    at 16 layers and in fp32 at 8."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import nbbs_alloc, paged_attention as pa
+    from repro_torch.models.transformer import init_params, layer_params
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.jit_engine import JitServeEngine
+
+    bf16 = torch.bfloat16
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                         dtype=bf16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def nbytes(node):
+        if isinstance(node, dict):
+            return sum(nbytes(v) for v in node.values())
+        return node.numel() * node.element_size()
+
+    out = dict(arch=MOE_ARCH, n_layers=cfg.n_layers, of_layers=get_config(MOE_ARCH).n_layers,
+               d_model=cfg.d_model, heads=(cfg.n_heads, cfg.n_kv_heads), head_dim=cfg.head_dim,
+               d_ff=cfg.d_ff, experts=cfg.n_experts, top_k=cfg.top_k, vocab=cfg.vocab_size,
+               weight_gb=nbytes(params) / 1e9, init_s=init_s)
+    report["moe"] = out   # filled in as the phase goes
+    log(f"[moe] {MOE_ARCH} full width, {cfg.n_layers} of {out['of_layers']} layers: d_model "
+        f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} head_dim {cfg.head_dim} d_ff "
+        f"{cfg.d_ff} experts {cfg.n_experts} top-{cfg.top_k} vocab {cfg.vocab_size}; "
+        f"{out['weight_gb']:.2f} GB of weights (bf16, router and tables fp32) from seed 0 "
+        f"in {init_s:.1f} s")
+    trace = state["trace"]
+
+    # -- 1. the jit engine, fused, in lockstep with the oracle -------------
+    rows, fused_tokens = [], None
+    for run in MOE_RUNS:
+        name = run_name(*run)
+        nbbs_alloc.launches, pa.launches = 0, 0
+        eng, lock, chunks, wall = lockstep(torch, cfg, params, dev, trace, run)
+        launches = {"nbbs_pool_step": nbbs_alloc.launches, "paged_attention": pa.launches}
+        steps, tot = eng.stats["steps"], eng.stat_totals()
+        tokens = sum(len(r.out_tokens) for r in eng.completed.values())
+        for i, _, mn in trace:
+            if len(eng.completed[i].out_tokens) != mn:
+                raise AssertionError(f"moe {name}: request {i} gave "
+                                     f"{len(eng.completed[i].out_tokens)} of {mn} tokens")
+        order, done, dense_tot = state[name]
+        same = dict(retired_order=eng.retired_order == order,
+                    done_steps=dict(eng.done_steps) == done, stat_totals=tot == dense_tot)
+        if not all(same.values()):
+            diff = {k: (v, tot.get(k)) for k, v in dense_tot.items() if tot.get(k) != v}
+            raise AssertionError(f"moe {name}: schedule differs from phase engine's: "
+                                 f"{same} {diff}")
+        per = 3 if run[2].get("magazines") else 2
+        admits = eng.stats["admitted"] + eng.stats["queued_full"]
+        want = {"nbbs_pool_step": per * (steps + admits),
+                "paged_attention": cfg.n_layers * steps}
+        if launches != want:
+            raise AssertionError(f"moe {name}: launches {launches}, expected {want}")
+        if len(eng._graphs) != (dev.type == "cuda"):   # one chunk length
+            raise AssertionError(f"moe {name}: {len(eng._graphs)} graphs captured")
+        if run[2].get("fastpath") and tot["fastpath_hits"] <= 0:
+            raise AssertionError(f"moe {name}: the slab served no page")
+        if run[2].get("magazines") and tot["magazine_hits"] <= 0:
+            raise AssertionError(f"moe {name}: the magazines served no page")
+        decode_ms = [a.elapsed_time(b) for _, a, b in chunks]
+        dec = sum(decode_ms)
+        steady = sum(decode_ms[1:]) / max(sum(n for n, _, _ in chunks[1:]), 1)
+        row = dict(run=name, decode_steps=steps, tokens=tokens, wall_s=wall,
+                   first_chunk_ms=decode_ms[0], decode_ms_per_step=dec / steps,
+                   steady_decode_ms_per_step=steady, tokens_per_s=tokens / (dec / 1e3),
+                   wall_tokens_per_s=tokens / wall, alloc_pages=tot["alloc_pages"],
+                   freed_pages=tot["freed_pages"], launches=launches,
+                   equal_to_engine_phase=same, oracle=lock,
+                   dense_steady_ms_per_step=next(
+                       (r["steady_decode_ms_per_step"] for r in report.get("engine", [])
+                        if r["run"] == name), None))
+        log(f"[moe] {name}: {steps} decode steps, {tokens} tokens, alloc "
+            f"{row['alloc_pages']} freed {row['freed_pages']} pages; decode "
+            f"{row['decode_ms_per_step']:.2f} ms/step (steady {steady:.2f}; stablelm-3b "
+            f"{row['dense_steady_ms_per_step']}), {row['tokens_per_s']:.1f} tokens/s decode, "
+            f"{row['wall_tokens_per_s']:.1f} tokens/s wall ({wall:.2f} s without the "
+            f"oracle); launches {launches} (= {per} x (steps + admissions), "
+            f"{cfg.n_layers} x steps); schedule, counters and tokens per request equal to "
+            f"phase engine's run; {lock['tables_checked']} block tables equal to the "
+            f"oracle's over {lock['chunks']} chunks")
+        if run == ENGINE_RUNS[0]:
+            fused_tokens = {i: r.out_tokens for i, r in eng.completed.items()}
+            fused_b_launches = launches["paged_attention"]
+        rows.append(row)
+        del eng
+        gc.collect()
+    out["jit_engine"] = rows
+
+    # -- 2. S=1 eager, its first CHUNK steps -------------------------------
+    nbbs_alloc.launches, pa.launches = 0, 0
+    eng = JitServeEngine(cfg, params, dtype=bf16, device=dev, **GEOM)
+    for i, p, mn in trace:
+        eng.submit(Request(i, p.copy(), mn))
+    eng._drain(), eng._admit()
+    chunks = []
+    no_sync_chunk(torch, eng.decode_steps, CHUNK, False, chunks)
+    torch.cuda.synchronize()
+    eager_ms = chunks[0][1].elapsed_time(chunks[0][2]) / CHUNK
+    admits = eng.stats["admitted"] + eng.stats["queued_full"]
+    want = {"nbbs_pool_step": 2 * (CHUNK + admits), "paged_attention": cfg.n_layers * CHUNK}
+    got = {"nbbs_pool_step": nbbs_alloc.launches, "paged_attention": pa.launches}
+    if got != want:
+        raise AssertionError(f"moe eager: launches {got}, expected {want}")
+    out_toks = eng.state.out_toks.cpu()
+    for sid, lane in eng._lane_of.items():
+        if out_toks[lane, :CHUNK].tolist() != fused_tokens[sid][:CHUNK]:
+            raise AssertionError(f"moe eager: request {sid}'s first {CHUNK} tokens differ "
+                                 "from the fused run's")
+    fused_steady = rows[0]["steady_decode_ms_per_step"]
+    out["eager"] = dict(steps=CHUNK, lanes=len(eng._lane_of), ms_per_step=eager_ms,
+                        fused_steady_ms_per_step=fused_steady,
+                        step_speedup=eager_ms / fused_steady, launches=got)
+    log(f"[moe] S=1 eager, first {CHUNK} steps of {len(eng._lane_of)} lanes: "
+        f"{eager_ms:.3f} ms/step against {fused_steady:.3f} fused (steady), "
+        f"{eager_ms / fused_steady:.2f}x; tokens equal to the fused run's; launches {got}")
+    del eng
+    gc.collect()
+
+    # -- 3. where a fused step's time goes ---------------------------------
+    eng = JitServeEngine(cfg, params, dtype=bf16, device=dev, **GEOM)
+    out["profile"] = fused_window(torch, eng, trace, cfg.n_layers, fused_steady, "moe")
+    del eng
+    gc.collect()
+    out["expert_ffn"] = expert_ffn_row(torch, dev, cfg, layer_params(params, 0)["moe"],
+                                       GEOM["max_batch"])
+
+    # -- 4. the host loop --------------------------------------------------
+    nbbs_alloc.launches, pa.launches = 0, 0
+    host, wall, prefill_s, step_ms = run_host_engine(torch, cfg, params, dev, bf16, 1, trace)
+    launches = {"nbbs_pool_step": nbbs_alloc.launches, "paged_attention": pa.launches}
+    steps = host.stats["steps"]
+    tokens = sum(len(r.out_tokens) for r in host.completed.values())
+    if launches != {"nbbs_pool_step": 0, "paged_attention": cfg.n_layers * steps}:
+        raise AssertionError(f"moe ServeEngine: launches {launches} in {steps} steps")
+    check_host_engine(host, trace, {}, "moe ServeEngine S1")
+    if "host_engine" not in report:
+        raise AssertionError("the ServeEngine run needs phase host_engine's S1 run")
+    dense = report["host_engine"]["serve_engine"][0]   # S1, the same trace and geometry
+    same = dict(steps=steps == dense["steps"], admitted=host.stats["admitted"] == dense["admitted"],
+                tokens=tokens == dense["tokens"])
+    if not all(same.values()):
+        raise AssertionError(f"moe ServeEngine: schedule differs from phase host_engine's: {same}")
+    out["serve_engine"] = dict(
+        run="S1", steps=steps, tokens=tokens, wall_s=wall, prefill_s=prefill_s,
+        ms_per_step=(wall - prefill_s) * 1e3 / steps,
+        median_ms_per_step=sorted(step_ms)[len(step_ms) // 2],
+        tokens_per_s=tokens / wall, decode_tokens_per_s=tokens / (wall - prefill_s),
+        launches=launches, equal_to_host_engine_phase=same,
+        dense_ms_per_step=dense["ms_per_step"])
+    log(f"[moe] ServeEngine S1: {steps} steps, {tokens} tokens in {wall:.2f} s (prefill "
+        f"{prefill_s:.2f} s): {out['serve_engine']['ms_per_step']:.3f} ms per decode step "
+        f"(median {out['serve_engine']['median_ms_per_step']:.3f}; stablelm-3b "
+        f"{dense['ms_per_step']:.3f}), {out['serve_engine']['tokens_per_s']:.1f} tokens/s; "
+        f"launches {launches}; fully coalesced; schedule equal to phase host_engine's")
+    del host
+    gc.collect()
+
+    # -- 5. kernel B at the model's heads ----------------------------------
+    inputs = attention_inputs(torch, dev, bf16, Hq=cfg.n_heads, Hkv=cfg.n_kv_heads,
+                              D=cfg.head_dim)
+    out["attention"] = host_attention_row(
+        torch, pa, f"{MOE_ARCH} ({cfg.n_heads}/{cfg.n_kv_heads} heads, D={cfg.head_dim})",
+        (*inputs, None), fused_b_launches, tag="moe")
+    del inputs
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"[moe] peak device memory {out['peak_memory_gb']:.2f} GB")
+
+    # -- 6. decode consistency at full width --------------------------------
+    out["consistency"] = [moe_consistency(torch, dev, cfg, params, bf16,
+                                          MOE_CONSISTENCY["bf16_rel_tol"])]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=MOE_CONSISTENCY["fp32_layers"])
+    params = init_params(cfg32, torch.Generator(device=dev).manual_seed(0), device=dev,
+                         dtype=torch.float32)
+    out["consistency"].append(moe_consistency(torch, dev, cfg32, params, torch.float32,
+                                              MOE_CONSISTENCY["fp32_rel_tol"]))
+    bad = [c for c in out["consistency"] if not c["ok"]]
+    if bad:
+        raise AssertionError(f"moe decode consistency: {bad}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2363,11 +2743,13 @@ def main(argv) -> int:
         ("profile", lambda: phase_profile(torch, dev, report, state)),
         ("cpu_trace", lambda: phase_cpu_trace(torch, report, state)),
         ("host_engine", lambda: phase_host_engine(torch, dev, report, state)),
+        ("moe", lambda: phase_moe(torch, dev, report, state)),
         ("fp32", lambda: phase_fp32(torch, dev, report)),
         ("flash", lambda: phase_flash(torch, dev, report, state)),
     ]
     for pname, fn in phases:
-        if pname in ("cpu_trace", "host_engine") and run_name(*ENGINE_RUNS[-1]) not in state:
+        if pname in ("cpu_trace", "host_engine", "moe") and run_name(
+                *ENGINE_RUNS[-1]) not in state:
             failures.append((pname, "needs the engine phase"))
             continue
         t = time.perf_counter()

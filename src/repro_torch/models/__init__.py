@@ -1,1 +1,1 @@
-"""Model code of the port (dense family)."""
+"""Model code of the port (the attention families: dense and MoE)."""

@@ -1,9 +1,9 @@
-"""Attention: GQA projections and the chunked online-softmax attention
-that prefill runs.
+"""Attention: GQA projections, the chunked online-softmax attention that
+prefill runs, and one-token decode over a dense cache.
 
-Counterpart of `repro/models/attention.py:37-133`.  `chunked_attention`
-is plain tensor code in the JAX package too (a `lax.scan` over KV
-chunks); here the scan is a Python loop.
+Counterpart of `repro/models/attention.py:37-176, 244-286`.  These are
+plain tensor code in the JAX package too (`chunked_attention` is a
+`lax.scan` over KV chunks; here the scan is a Python loop).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.layers import _normal
+from repro_torch.models.layers import _normal, apply_rope
 
 NEG_INF = -1e30
 
@@ -86,3 +86,72 @@ def chunked_attention(
     out = acc / norm[..., None]                      # [B, Hkv, G, Sq, D]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
     return out.to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    context_len: int,
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One-token decode over a dense cache.
+
+    q: [B, 1, Hq, D]; k_cache, v_cache: [B, S, Hkv, D]; the first
+    `context_len` positions are live.  Products run in float32 on the
+    cache's values, as JAX's `preferred_element_type=float32`; the
+    probabilities are rounded to the cache dtype before the PV product.
+    Returns [B, 1, Hq, D] in q's dtype."""
+    B, S, Hkv, D = k_cache.shape
+    Hq = q.shape[2]
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, -1, Hkv, group, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(S, device=q.device)
+    mask = pos < context_len
+    if window is not None and window > 0:
+        mask = mask & (pos > context_len - 1 - window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype).float()
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache.float())
+    return out.reshape(B, -1, Hq, D).to(q.dtype)
+
+
+def attention_decode_stacked(
+    p: dict,
+    x: torch.Tensor,
+    k_all: torch.Tensor,
+    v_all: torch.Tensor,
+    layer: int,
+    pos: int,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    rope_theta: float,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Decode step of layer `layer` against a stacked cache
+    [L, B, S, Hkv, D]: x [B, 1, d] -> out [B, 1, d].  The new token's K/V
+    is written into `k_all` / `v_all` at position `pos` in place, then
+    the layer's cache is read up to `pos` + 1."""
+    B = x.shape[0]
+    q = (x @ p["wq"]).reshape(B, 1, n_heads, head_dim)
+    k = (x @ p["wk"]).reshape(B, 1, n_kv_heads, head_dim)
+    v = (x @ p["wv"]).reshape(B, 1, n_kv_heads, head_dim)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    k_all[layer, :, pos] = k[:, 0]
+    v_all[layer, :, pos] = v[:, 0]
+    out = decode_attention(q, k_all[layer], v_all[layer], pos + 1, window=window,
+                           softcap=softcap)
+    return out.reshape(B, 1, n_heads * head_dim) @ p["wo"]

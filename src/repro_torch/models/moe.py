@@ -1,0 +1,190 @@
+"""Mixture-of-Experts layer with capacity-based dispatch.
+
+Counterpart of `repro/models/moe.py`: top-k routing, per-expert
+capacity buffers, positions in expert from cumulative sums of one-hots,
+then either the scatter dispatch / gather combine (`apply_moe`) or the
+GShard one-hot matmul dispatch (`_apply_moe_einsum`).  `n_blocks` > 1
+computes positions per token block (block-local capacity); `n_blocks` =
+1 is the global formulation.  Aux loss: Switch load balancing plus 1e-3
+x the router z-loss.
+
+The JAX layer's `axes` argument (SPMD constraints on the buffers) has no
+counterpart here: the port runs on one card, and sharding comes with the
+distribution slice.
+
+Everything here is plain tensor code with shapes fixed by the inputs: no
+host sync and no data-dependent shape, so the layer runs inside a
+captured CUDA graph.  Three places differ from a literal translation:
+
+- top-k is taken by repeated `argmax`, which returns the first maximal
+  index, so equal probabilities pick the lower expert first as
+  `jax.lax.top_k` does (`torch.topk` promises no order among ties);
+- one-hots are comparisons with an `arange`, so an out-of-range index
+  gives an all-zero row as `jax.nn.one_hot` does (the einsum path relies
+  on it for dropped tokens; `torch.nn.functional.one_hot` raises);
+- the scatter writes every dropped token into the overflow slot
+  `capacity`, in no fixed order on the card: that slot is cut off before
+  the expert FFN and never read.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.models.layers import _normal
+
+F32 = torch.float32
+
+
+def init_moe(gen: torch.Generator, d: int, ff: int, n_experts: int, device="cuda") -> dict:
+    s_in = d ** -0.5
+    s_out = ff ** -0.5
+    return {
+        "router": _normal(gen, (d, n_experts), device) * s_in,
+        "w_gate": _normal(gen, (n_experts, d, ff), device) * s_in,
+        "w_in": _normal(gen, (n_experts, d, ff), device) * s_in,
+        "w_out": _normal(gen, (n_experts, ff, d), device) * s_out,
+    }
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """`jax.nn.one_hot`: an index outside [0, n) gives a row of zeros."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _route(router: torch.Tensor, x: torch.Tensor, top_k: int):
+    """Router logits, probabilities, renormalised top-k gates and experts
+    (descending, lower index first among equal probabilities), and the
+    aux loss over every token of `x` [..., d]."""
+    E = router.shape[1]
+    logits = x.float() @ router                           # [..., E]
+    probs = torch.softmax(logits, dim=-1)
+    left = probs
+    idx = []
+    for _ in range(top_k):
+        i = left.argmax(dim=-1)
+        idx.append(i)
+        left = left.scatter(-1, i[..., None], -1.0)       # probs are >= 0
+    expert_idx = torch.stack(idx, dim=-1)                 # [..., K]
+    gate_vals = probs.gather(-1, expert_idx)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    T = probs.numel() // E
+    me = probs.reshape(T, E).mean(dim=0)
+    first = expert_idx[..., 0].reshape(T)
+    ce = torch.zeros(E, dtype=F32, device=x.device).index_add_(
+        0, first, torch.ones(T, dtype=F32, device=x.device)) / T
+    aux = E * (me * ce).sum()
+    aux = aux + 1e-3 * torch.logsumexp(logits, dim=-1).square().mean()
+    return gate_vals, expert_idx, aux
+
+
+def _swiglu_experts(p: dict, buf: torch.Tensor, dtype) -> torch.Tensor:
+    """The expert FFN over capacity buffers [..., E, C, d] (the weights
+    are in `dtype` already)."""
+    g = torch.matmul(buf, p["w_gate"])
+    h = torch.matmul(buf, p["w_in"])
+    act = torch.nn.functional.silu(g.float()).to(dtype) * h
+    return torch.matmul(act, p["w_out"])
+
+
+def apply_moe(
+    p: dict,
+    x: torch.Tensor,
+    *,
+    top_k: int,
+    capacity_factor: float = 1.25,
+    dtype=torch.bfloat16,
+    n_blocks: int = 1,
+    dispatch: str = "scatter",
+    group_size: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, d] -> (y: [B, S, d] in x's dtype, aux_loss: scalar).
+
+    `p["router"]` is float32 and the expert weights are in `dtype`, as
+    `models.transformer.params_from_numpy` and `init_params` hold them.
+    `dispatch="einsum"` selects the one-hot matmul dispatch."""
+    if dispatch == "einsum":
+        return _apply_moe_einsum(p, x, top_k=top_k, capacity_factor=capacity_factor,
+                                 dtype=dtype, group_size=group_size)
+    B, S, d = x.shape
+    E = p["router"].shape[1]
+    T = B * S
+    if T % n_blocks != 0:
+        n_blocks = 1
+    Tb = T // n_blocks
+    dev = x.device
+    xf = x.reshape(T, d)
+    gate_vals, expert_idx, aux = _route(p["router"], xf, top_k)      # [T, K]
+
+    cap_b = max(int(capacity_factor * Tb * top_k / E), 1)
+    capacity = cap_b * n_blocks  # per-expert total slots
+    # slot-major positions within each token block, then the expert's
+    # global slot range block * cap_b + pos
+    e_blk = expert_idx.reshape(n_blocks, Tb, top_k).transpose(1, 2)  # [NB, K, Tb]
+    onehot = _one_hot(e_blk.reshape(n_blocks, top_k * Tb), E, torch.int32)
+    pos_flat = (torch.cumsum(onehot, dim=1) - 1) * onehot
+    pos_b = pos_flat.sum(-1).reshape(n_blocks, top_k, Tb)
+    keep_b = pos_b < cap_b
+    blk = torch.arange(n_blocks, device=dev)[:, None, None]
+    slot_b = torch.where(keep_b, pos_b + blk * cap_b, capacity)
+    keep = keep_b.transpose(0, 1).reshape(top_k, T)
+    slot = slot_b.transpose(0, 1).reshape(top_k, T)
+    e_kt = e_blk.transpose(0, 1).reshape(top_k, T)
+
+    # dispatch: scatter into [E, capacity + 1 overflow, d], drop overflow
+    buf = torch.zeros((E, capacity + 1, d), dtype=dtype, device=dev)
+    buf[e_kt, slot] = xf.to(dtype).expand(top_k, T, d)
+    out_e = _swiglu_experts(p, buf[:, :capacity], dtype)
+    out_e = torch.nn.functional.pad(out_e, (0, 0, 0, 1))
+
+    # combine: gather each (token, slot) result, weight by its gate
+    gathered = out_e[e_kt, slot]                                     # [K, T, d]
+    w = (gate_vals.transpose(0, 1) * keep)[..., None].float()
+    y = (gathered.float() * w).sum(0)
+    return y.reshape(B, S, d).to(x.dtype), aux
+
+
+def _apply_moe_einsum(
+    p: dict,
+    x: torch.Tensor,
+    *,
+    top_k: int,
+    capacity_factor: float,
+    dtype,
+    group_size: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style dispatch: one-hot (token -> expert, slot) tensors
+    contracted with matmuls, capacity per (group, expert); G groups of
+    Sg tokens.  group_size = T gives the scatter path's global
+    capacity."""
+    B, S, d = x.shape
+    E = p["router"].shape[1]
+    T = B * S
+    G = max(T // group_size, 1)
+    while T % G:
+        G -= 1
+    Sg = T // G
+    xg = x.reshape(G, Sg, d)
+    gate_vals, expert_idx, aux = _route(p["router"], xg, top_k)      # [G, Sg, K]
+
+    C = max(int(capacity_factor * Sg * top_k / E), 1)
+    e_sm = expert_idx.transpose(1, 2)                                # [G, K, Sg]
+    oh = _one_hot(e_sm, E, torch.int32)                              # [G, K, Sg, E]
+    ohf = oh.reshape(G, top_k * Sg, E)
+    pos = ((torch.cumsum(ohf, dim=1) - 1) * ohf).sum(-1).reshape(G, top_k, Sg)
+    keep = pos < C
+    # slot C is out of range: dropped tokens get all-zero rows
+    pos_oh = _one_hot(torch.where(keep, pos, C), C, dtype)           # [G, K, Sg, C]
+
+    disp = torch.einsum("gkse,gksc->gsec", oh.to(dtype), pos_oh)     # [G, Sg, E, C]
+    buf = torch.einsum("gsec,gsd->gecd", disp, xg.to(dtype))
+    out_e = _swiglu_experts(p, buf, dtype)                           # [G, E, C, d]
+
+    gates_sm = gate_vals.transpose(1, 2)                             # [G, K, Sg]
+    comb = torch.einsum("gkse,gksc,gks->gsec", oh.float(), pos_oh.float(),
+                        gates_sm * keep).to(dtype)
+    y = torch.einsum("gsec,gecd->gsd", comb, out_e)
+    return y.reshape(B, S, d).to(x.dtype), aux

@@ -1,14 +1,17 @@
-"""Dense decoder backbone: parameters, window array and prefill.
+"""Decoder backbone of the attention families: parameters, window
+array, prefill, the dense KV cache and its decode step.
 
-Counterpart of `repro/models/transformer.py:68-141, 469-546` for the
-dense family (the other families come with later slices).  Layer
-parameters are stacked on a leading [n_layers] axis as in the JAX
+Counterpart of `repro/models/transformer.py:68-141, 279-381, 469-546`
+for the families whose layers are GQA attention followed by SwiGLU or
+MoE (dense, moe, vlm, audio); hybrid and ssm come with a later slice.
+Layer parameters are stacked on a leading [n_layers] axis as in the JAX
 package, and the scan over layers is a Python loop over views.
 
-Parameter dtypes: the matmul weights (attention and MLP projections) are
-held in the working dtype; embeddings, the LM head and the norm scales
-stay float32, as the JAX layers read them (`embed` casts the gathered
-rows, `logits` works in float32).
+Parameter dtypes: the matmul weights (attention, MLP and expert
+projections) are held in the working dtype; embeddings, the LM head,
+the norm scales and the MoE router stay float32, as the JAX layers read
+them (`embed` casts the gathered rows, `logits` works in float32, the
+router multiplies float32 activations).
 """
 
 from __future__ import annotations
@@ -19,7 +22,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import chunked_attention, init_attention
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.attention import (
+    attention_decode_stacked,
+    chunked_attention,
+    init_attention,
+)
 from repro_torch.models.layers import (
     apply_rope,
     apply_swiglu,
@@ -34,12 +42,33 @@ from repro_torch.models.layers import (
 _MATMUL = {"wq", "wk", "wv", "wo", "w_gate", "w_in", "w_out"}
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "audio") or cfg.n_experts:
+ATTENTION_FAMILIES = ("dense", "moe", "vlm", "audio")
+
+
+def check_family(cfg: ArchConfig) -> None:
+    """Refuse the families the port does not have yet."""
+    if cfg.family not in ATTENTION_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the port has the dense family only; MoE and the "
-            "other families come with a later slice"
+            f"{cfg.name}: the port has the attention families "
+            f"({', '.join(ATTENTION_FAMILIES)}) only; the {cfg.family} family "
+            "comes with a later slice"
         )
+
+
+def _ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor, dispatch: str) -> torch.Tensor:
+    """The layer's SwiGLU, or its MoE as prefill and `decode_step` call it:
+    drop-free (capacity factor n_experts) unless the config sets a
+    serving capacity, `n_blocks` and `group_size` from the config, the
+    aux loss dropped."""
+    if not cfg.n_experts:
+        return apply_swiglu(lp["mlp"], h)
+    y, _ = moe_lib.apply_moe(
+        lp["moe"], h, top_k=cfg.top_k,
+        capacity_factor=cfg.serve_capacity_factor or float(cfg.n_experts),
+        dtype=h.dtype, n_blocks=cfg.dispatch_blocks, dispatch=dispatch,
+        group_size=cfg.dispatch_group,
+    )
+    return y
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, device="cuda",
@@ -47,7 +76,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device="cuda",
     """Random parameters from `gen` (float32 draws; matmul weights then
     cast to `dtype`), built one layer at a time so the float32 copy of
     the whole model never exists at once."""
-    _check_dense(cfg)
+    check_family(cfg)
     L, d = cfg.n_layers, cfg.d_model
     params: Dict = {
         "embed": init_embedding(gen, cfg.vocab_size, d, device),
@@ -59,7 +88,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device="cuda",
         "ln1": torch.zeros((L, d), dtype=torch.float32, device=device),
         "ln2": torch.zeros((L, d), dtype=torch.float32, device=device),
         "attn": {},
-        "mlp": {},
+        "moe" if cfg.n_experts else "mlp": {},
     }
     if cfg.post_norm:
         layers["ln1_post"] = torch.zeros((L, d), dtype=torch.float32, device=device)
@@ -69,15 +98,20 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device="cuda",
             "attn": init_attention(
                 gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, device
             ),
-            "mlp": init_swiglu(gen, d, cfg.d_ff, device),
         }
+        if cfg.n_experts:
+            blocks["moe"] = moe_lib.init_moe(gen, d, cfg.d_ff, cfg.n_experts, device)
+        else:
+            blocks["mlp"] = init_swiglu(gen, d, cfg.d_ff, device)
         for group, ws in blocks.items():
             for name, w in ws.items():
                 if li == 0:
                     layers[group][name] = torch.empty(
-                        (L,) + tuple(w.shape), dtype=dtype, device=device
+                        (L,) + tuple(w.shape), device=device,
+                        dtype=dtype if name in _MATMUL else torch.float32,
                     )
-                layers[group][name][li] = w.to(dtype)
+                layers[group][name][li] = w
+        del blocks   # this layer's float32 draws, before the next layer's
     params["layers"] = layers
     return params
 
@@ -86,7 +120,7 @@ def params_from_numpy(cfg: ArchConfig, tree, device="cuda",
                       dtype=torch.float32) -> dict:
     """The JAX parameter pytree (leaves moved through `np.asarray`) as the
     port's parameters: matmul weights in `dtype`, the rest float32."""
-    _check_dense(cfg)
+    check_family(cfg)
 
     def conv(node, name=""):
         if isinstance(node, dict):
@@ -124,16 +158,14 @@ def prefill(
     dtype=torch.bfloat16,
 ):
     """Process the prompt; returns (last-token logits [B, V] float32,
-    cache {"k", "v": [L, B, max_len, Hkv, D] in `dtype`, "pos"})."""
-    _check_dense(cfg)
+    cache {"k", "v": [L, B, max_len, Hkv, D] in `dtype`, "pos": S})."""
+    check_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
     x = embed(params["embed"], tokens, dtype, scale=cfg.embed_scale)
     positions = torch.arange(S, device=dev)[None, :]
-    kv_shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.head_dim)
-    cache_k = torch.zeros(kv_shape, dtype=dtype, device=dev)
-    cache_v = torch.zeros(kv_shape, dtype=dtype, device=dev)
+    cache = init_cache(cfg, B, max_len, dtype, dev)
     softcap = cfg.attn_softcap or None
     for li, window in enumerate(window_array(cfg)):
         lp = layer_params(params, li)
@@ -148,13 +180,55 @@ def prefill(
         if cfg.post_norm:
             h = rms_norm(h, lp["ln1_post"], cfg.norm_eps)
         x = x + h
-        h = apply_swiglu(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+        h = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.dispatch_mode)
         if cfg.post_norm:
             h = rms_norm(h, lp["ln2_post"], cfg.norm_eps)
         x = x + h
-        cache_k[li, :, :S] = k
-        cache_v[li, :, :S] = v
+        cache["k"][li, :, :S] = k
+        cache["v"][li, :, :S] = v
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     lg = lm_logits(h[:, -1], table, cfg.final_softcap or None)
-    return lg, {"k": cache_k, "v": cache_v, "pos": S}
+    return lg, dict(cache, pos=S)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cuda") -> dict:
+    """Dense decode cache {"k", "v": [L, batch, max_len, Hkv, D] zeros,
+    "pos": 0}; "pos" (a Python int) is the current context length."""
+    check_family(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "pos": 0,
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor, *,
+                dtype=torch.bfloat16):
+    """One decode step over the dense cache.  tokens: [B] -> (logits [B, V]
+    float32, cache with "pos" + 1).  The new token's K/V is written into
+    `cache["k"]` / `cache["v"]` in place (the torch form of the JAX scan's
+    carried cache).  MoE layers take the scatter dispatch always."""
+    check_family(cfg)
+    pos = cache["pos"]
+    x = embed(params["embed"], tokens[:, None], dtype, scale=cfg.embed_scale)
+    akw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+               rope_theta=cfg.rope_theta, softcap=cfg.attn_softcap or None)
+    for li, window in enumerate(window_array(cfg)):
+        lp = layer_params(params, li)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        h = attention_decode_stacked(lp["attn"], h, cache["k"], cache["v"], li, pos,
+                                     window=window, **akw)
+        if cfg.post_norm:
+            h = rms_norm(h, lp["ln1_post"], cfg.norm_eps)
+        x = x + h
+        h = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), "scatter")
+        if cfg.post_norm:
+            h = rms_norm(h, lp["ln2_post"], cfg.norm_eps)
+        x = x + h
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    lg = lm_logits(h[:, 0], table, cfg.final_softcap or None)
+    return lg, dict(cache, pos=pos + 1)

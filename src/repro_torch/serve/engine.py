@@ -7,8 +7,9 @@ bursts of variable-length requests hit one shared page pool; admission
 = buddy allocation success (`memory/kv_cache.PagedKVManager` over the
 paper's sequential `NBBSRef` trees), growth = buddy doubling, completion
 frees coalesce.  The device step is `serve/paged_decode.paged_decode_step`
-(dense families) — sequences at arbitrary positions decode together,
-through kernel B (`csrc/paged_attention.cu`) once per layer on the card.
+(the attention families, dense and MoE) — sequences at arbitrary
+positions decode together, through kernel B (`csrc/paged_attention.cu`)
+once per layer on the card.
 
 Prefill runs through the dense `serve_prefill` per admitted request and
 its KV is written into the sequence's pages on the device, in place
@@ -29,7 +30,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.memory.kv_cache import PagedKVManager
-from repro_torch.models.transformer import _check_dense
+from repro_torch.models.transformer import ATTENTION_FAMILIES
 from repro_torch.serve.paged_decode import init_pool, paged_decode_step, serve_prefill
 
 
@@ -69,11 +70,11 @@ class ServeEngine:
         magazine_refill: int = 0,
         mag_lanes: Optional[int] = None,
     ) -> None:
-        assert cfg.family in ("dense", "moe", "vlm", "audio"), (
-            "paged engine covers attention families; SSM/hybrid use "
-            "fixed-size state slots (see docs/design.md §5)"
-        )
-        _check_dense(cfg)  # before any pool is allocated
+        if cfg.family not in ATTENTION_FAMILIES:  # before any pool is allocated
+            raise ValueError(
+                "paged engine covers attention families; SSM/hybrid use "
+                "fixed-size state slots (see docs/design.md §5)"
+            )
         self.cfg = cfg
         self.params = params
         self.page_tokens = page_tokens

@@ -85,7 +85,7 @@ from repro_torch.core.pool import (
     pool_mag_free_per_shard,
 )
 from repro_torch.kernels import counters as kcounters
-from repro_torch.models.transformer import _check_dense
+from repro_torch.models.transformer import ATTENTION_FAMILIES
 from repro_torch.obs import metrics as om
 from repro_torch.obs import ring as oring
 from repro_torch.obs.schema import ENGINE_METRICS
@@ -602,10 +602,8 @@ class JitServeEngine:
         magazine_refill: int = 0,
         ring_capacity: int = 0,
     ) -> None:
-        assert cfg.family in ("dense", "moe", "vlm", "audio"), (
-            "paged engine covers attention families"
-        )
-        _check_dense(cfg)  # before any pool is allocated
+        if cfg.family not in ATTENTION_FAMILIES:  # before any pool is allocated
+            raise ValueError("paged engine covers attention families")
         if max_lane_pages is None:
             max_lane_pages = min(num_pages, 128)
         self.ecfg = EngineConfig(

@@ -1,8 +1,8 @@
 """Paged decode step: the full-model consumer of the NBBS page pool.
 
-Counterpart of `repro/serve/paged_decode.py` (the dense branch).  The
-KV cache lives in a global page pool [L, P+1, page, Hkv, D] addressed
-through per-sequence block tables.  Each step computes this token's K/V
+Counterpart of `repro/serve/paged_decode.py`, for the attention
+families (dense, moe, vlm, audio).  The KV cache lives in a global page
+pool [L, P+1, page, Hkv, D] addressed through per-sequence block tables.  Each step computes this token's K/V
 per layer, writes them into the page/slot the table gives, and attends
 over the pages with `kernels.ops.paged_attention`.
 
@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     apply_rope,
     apply_swiglu,
@@ -29,7 +30,12 @@ from repro_torch.models.layers import (
     logits as lm_logits,
     rms_norm,
 )
-from repro_torch.models.transformer import layer_params, prefill, window_array
+from repro_torch.models.transformer import (
+    check_family,
+    layer_params,
+    prefill,
+    window_array,
+)
 
 
 def serve_prefill(cfg: ArchConfig, params, batch, *, max_len, dtype):
@@ -61,8 +67,10 @@ def paged_decode_step(
     dtype=torch.bfloat16,
     active: torch.Tensor | None = None,  # bool[B]; None = all lanes live
 ):
-    """Returns logits [B, V] (float32); `pool` is updated in place."""
-    assert cfg.family in ("dense", "vlm", "audio") and not cfg.n_experts, cfg.family
+    """Returns logits [B, V] (float32); `pool` is updated in place.  MoE
+    layers run drop-free (capacity factor n_experts) with the scatter
+    dispatch in one block, as JAX's paged step calls them."""
+    check_family(cfg)
     B = tokens.shape[0]
     P = pool["k"].shape[1] - 1          # the last page is the sink
     MP = block_tables.shape[1]
@@ -103,7 +111,14 @@ def paged_decode_step(
         if cfg.post_norm:
             h = rms_norm(h, lp["ln1_post"], cfg.norm_eps)
         x = x + h
-        h = apply_swiglu(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if cfg.n_experts:
+            h, _ = moe_lib.apply_moe(
+                lp["moe"], h, top_k=cfg.top_k,
+                capacity_factor=float(cfg.n_experts), dtype=dtype,
+            )
+        else:
+            h = apply_swiglu(lp["mlp"], h)
         if cfg.post_norm:
             h = rms_norm(h, lp["ln2_post"], cfg.norm_eps)
         x = x + h

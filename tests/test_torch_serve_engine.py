@@ -8,7 +8,8 @@ every generated token, `stats`, every running sequence's block table and
 the page manager's trees must be identical; `step_log` at the end.  The
 prefill logits agree within 1e-4, and so does the KV pool (the port's
 pool has one more page, the sink of padded rows: `pool[:, :P]`).  The
-launcher's JSON line against JAX's launcher, and the MoE refusal.
+launcher's JSON line against JAX's launcher, and the refusal of the
+hybrid and ssm families.
 """
 
 import contextlib
@@ -199,15 +200,16 @@ def test_launcher_json_matches_jax():
     assert got["tokens_per_s"] > 0
 
 
+@pytest.mark.parametrize("name", ["zamba2-1.2b", "rwkv6-7b"])
 @pytest.mark.parametrize("engine", ["serve", "jit"])
-def test_moe_refused_at_construction(engine, monkeypatch):
-    """The port has the dense family only: both engines refuse a MoE
-    config with the model's message before any pool is allocated (JAX
-    serves it: tests/test_serving.py::TestMoEServing)."""
+def test_missing_families_refused_at_construction(engine, name, monkeypatch):
+    """The paged engines serve the attention families (dense and MoE:
+    tests/test_torch_moe_engines.py); both refuse the hybrid and ssm
+    families, as JAX's engines do, before any pool is allocated."""
     from repro_torch.serve import engine as teng_mod
     from repro_torch.serve import jit_engine as tjit_mod
 
-    cfg = get_config("phi3.5-moe-42b-a6.6b").reduced()
+    cfg = get_config(name).reduced()
     dense = get_config("stablelm-3b").reduced()
     params = init_params(dense, torch.Generator().manual_seed(0), device="cpu")
 
@@ -217,5 +219,5 @@ def test_moe_refused_at_construction(engine, monkeypatch):
     monkeypatch.setattr(teng_mod, "init_pool", no_pool)
     monkeypatch.setattr(tjit_mod, "init_engine_state", no_pool)
     cls = ServeEngine if engine == "serve" else JitServeEngine
-    with pytest.raises(NotImplementedError, match="the port has the dense family only"):
+    with pytest.raises(ValueError, match="paged engine covers attention families"):
         cls(cfg, params, num_pages=32, page_tokens=4, max_batch=2, device="cpu")
