@@ -137,7 +137,27 @@ Phases (any failure fails the run, exit code 1):
      sequence (no kernel on that path): the jit engine's logits within
      1e-3 at each step, both engines' tokens equal wherever the top-2
      gap exceeds 1e-3;
-  10. flash: with its launch count at 0, the differentiable
+  10. train: stablelm-3b trained through `launch/train.py`'s path
+     (`train_fns`: `SyntheticLM`, `init_train_state`, `make_train_step`),
+     no kernel of the port on it: (a) at full width (32 layers, random
+     weights from seed 0, float32 masters, bf16 compute, remat), global
+     batch 8 x 1024 in 2 microbatches, 6 AdamW steps (warm-up 2, the
+     first step a warm-up): steady ms per step from CUDA events and
+     AdamW's share, tokens/s, model TFLOP/s (6 N T over the step, N the
+     matmul parameters) and its share of 989, peak memory under the
+     card's capacity, losses and grad norms finite, then one profiled
+     step (device busy, ms by kernel family); (b) at full width cut to
+     2 layers, B=2, S=128, fp32, against the same on CPU tensors in this
+     process: the loss (1e-5 relative) and every gradient leaf (1e-4 of
+     its max), AdamW on the CPU's gradients (parameters, m and v, 1e-4
+     of each leaf's max), one `make_train_step` (loss, grad norm 1e-5
+     relative); (c)
+     the launcher's `Supervisor` at full width cut to 4 layers, bf16,
+     compressed gradients, 2 microbatches, 8 x 256: 30 steps, a
+     checkpoint every 10, a failure at 17: one restart, steps 10-16
+     replayed, the loss lower at the end, the last checkpoint restored
+     bit for bit;
+  11. flash: with its launch count at 0, the differentiable
      `ops.flash_attention` (kernel 5 forward) at full attention width in
      bf16, B=1: stablelm-3b (32/32 heads, D=80, S=4096, causal),
      phi3-medium-14b (40/10, D=128, S=4096, causal), gemma2-27b global
@@ -622,7 +642,7 @@ def kernel_launch_ms(torch, fn, name, reps):
 
     for _ in range(3):   # a trace now and then comes back without its kernels
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -2511,7 +2531,355 @@ def phase_fp32(torch, dev, report):
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: flash attention (kernel 5) through ops.flash_attention
+# Phase 10: training (launch/train.py's path) at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "stablelm-3b"
+# (a) the full-width run: global batch x seq, microbatches, steps (the
+# first a warm-up), AdamW's schedule
+TRAIN_RUN = dict(batch=8, seq=1024, microbatches=2, steps=6, peak_lr=3e-4,
+                 warmup_steps=2)
+# (b) one fp32 step on the card against the same step on the CPU
+TRAIN_CHECK = dict(layers=2, batch=2, seq=128, peak_lr=3e-4, loss_rel_tol=1e-5,
+                   leaf_tol=1e-4)
+# (c) the supervisor with a failure and a restart.  The launcher's AdamW
+# schedule (peak 3e-3, warm-up 20) is for the reduced widths: at d_model
+# 2560 in bf16 it raised the loss from 11.36 to 12.52 in 30 steps.  With
+# warm-up 2, peak 3e-4 moves the loss less than its batch-to-batch noise
+# (+-0.03) in 30 steps; peak 1e-3 lowers it by 0.15
+TRAIN_RESTART = dict(layers=4, batch=8, seq=256, microbatches=2, steps=30, ckpt_every=10,
+                     fail_at=17, peak_lr=1e-3, warmup_steps=2)
+# the kernel families of a training step's device time, by kernel name
+TRAIN_KERNEL_KINDS = (("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+                      ("reduce", ("reduce",)),
+                      ("elementwise", ("elementwise", "vectorized", "unrolled")),
+                      ("index", ("index", "scatter", "gather")),
+                      ("copy", ("copy", "cat", "memcpy", "memset")))
+
+
+def matmul_params(cfg):
+    """Parameters of the matmuls a token passes through: every layer's
+    attention and MLP projections and the LM head (the embedding is a
+    gather)."""
+    hd = cfg.n_heads * cfg.head_dim
+    attn = cfg.d_model * (2 * hd + 2 * cfg.n_kv_heads * cfg.head_dim)
+    return cfg.n_layers * (attn + 3 * cfg.d_model * cfg.d_ff) + cfg.vocab_size * cfg.d_model
+
+
+def kernel_kinds(events):
+    """Device ms of `events` by kernel family (TRAIN_KERNEL_KINDS, then
+    "other")."""
+    out: dict = {}
+    for e in events:
+        name = e.name.lower()
+        kind = next((k for k, keys in TRAIN_KERNEL_KINDS if any(s in name for s in keys)),
+                    "other")
+        out[kind] = out.get(kind, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return out
+
+
+def train_full(torch, dev, cfg):
+    """(a): `launch/train.py`'s path at full width in bf16 over float32
+    masters: steady ms per step (CUDA events), the optimizer's share,
+    tokens/s, model TFLOP/s (6 N T over the step), peak memory, losses
+    and grad norms, then one profiled step (device time by kernel family)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import train_fns
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import TrainConfig
+    from repro_torch.tree_util import leaves
+
+    r = TRAIN_RUN
+    tcfg = TrainConfig(microbatches=r["microbatches"], remat=True, dtype=torch.bfloat16,
+                       optimizer=adamw.AdamWConfig(peak_lr=r["peak_lr"],
+                                                   warmup_steps=r["warmup_steps"],
+                                                   total_steps=r["steps"]))
+    make_state, step_fn = train_fns(cfg, tcfg, batch=r["batch"], seq=r["seq"], seed=0,
+                                    device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = make_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in leaves(state.params))
+    state_gb = torch.cuda.memory_allocated(dev) / 1e9
+    update, opt_events = adamw.update, []
+
+    def timed_update(*a, **kw):   # the optimizer's device time inside each step
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        res = update(*a, **kw)
+        ev[1].record()
+        opt_events.append(ev)
+        return res
+
+    steps = []
+    adamw.update = timed_update
+    try:
+        for i in range(r["steps"]):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            state, m = step_fn(state, i)
+            ev[1].record()
+            steps.append((ev, m))
+        torch.cuda.synchronize()
+    finally:
+        adamw.update = update
+    step_ms = [ev[0].elapsed_time(ev[1]) for ev, _ in steps]
+    opt_ms = [a.elapsed_time(b) for a, b in opt_events]
+    losses = [float(m["loss"]) for _, m in steps]
+    gnorms = [float(m["grad_norm"]) for _, m in steps]
+    peak = torch.cuda.max_memory_allocated(dev)
+    capacity = torch.cuda.get_device_properties(dev).total_memory
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        raise AssertionError(f"train: losses {losses}, grad norms {gnorms}")
+    if peak >= capacity:
+        raise AssertionError(f"train: peak memory {peak} >= the card's {capacity}")
+    steady = step_ms[1:]
+    ms = sum(steady) / len(steady)
+    tokens = r["batch"] * r["seq"]
+    n_mm = matmul_params(cfg)
+    tflops = 6 * n_mm * tokens / (ms / 1e3) / 1e12
+    out = dict(arch=TRAIN_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, params=n_params, matmul_params=n_mm,
+               batch=r["batch"], seq=r["seq"], microbatches=r["microbatches"],
+               tokens_per_step=tokens, init_s=init_s, state_gb=state_gb,
+               step_ms=step_ms, optimizer_ms=opt_ms, ms_per_step=ms,
+               optimizer_ms_per_step=sum(opt_ms[1:]) / len(opt_ms[1:]),
+               tokens_per_s=tokens / (ms / 1e3), model_tflops=tflops,
+               model_flops_share_of_989=tflops / 989, peak_memory_gb=peak / 1e9,
+               capacity_gb=capacity / 1e9, losses=losses, grad_norms=gnorms)
+    log(f"[train] {TRAIN_ARCH} full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}; {n_params} parameters, {n_mm} in matmuls) from seed 0 "
+        f"in {init_s:.1f} s, bf16 over float32 masters, remat; batch {r['batch']} x "
+        f"{r['seq']} in {r['microbatches']} microbatches")
+    log(f"[train]   steps (ms, CUDA events; the first warms up): "
+        f"{[round(t, 3) for t in step_ms]}; the optimizer {[round(t, 3) for t in opt_ms]}")
+    log(f"[train]   steady {ms:.3f} ms per step (AdamW {out['optimizer_ms_per_step']:.3f}), "
+        f"{out['tokens_per_s']:.1f} tokens/s, model {tflops:.1f} TFLOP/s (6 N T, "
+        f"{100 * tflops / 989:.2f}% of 989); train state {state_gb:.2f} GB, peak "
+        f"{out['peak_memory_gb']:.2f} GB of {out['capacity_gb']:.2f}")
+    log(f"[train]   loss {losses[0]:.4f} -> {losses[-1]:.4f}; grad norm "
+        f"{[round(g, 4) for g in gnorms]}")
+
+    # device events only: the CPU's 100k-odd op events take long to gather
+    acts = [ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, r["steps"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = device_busy(events) / 1e3
+    kinds = kernel_kinds(events)
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    out["profile"] = dict(wall_ms=wall_ms, device_busy_ms=busy, idle_share=1 - busy / wall_ms,
+                          kernels=len(events), ms_by_kind=kinds,
+                          top_ms=[(n, t / 1e3) for n, t in sorted(
+                              by_name.items(), key=lambda kv: -kv[1])[:10]])
+    log(f"[train]   profiled step: {wall_ms:.1f} ms wall, device busy {busy:.1f} ms (idle "
+        f"{out['profile']['idle_share']:.4f}), {len(events)} kernels; ms by family "
+        f"{ {k: round(v, 1) for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])} }")
+    for n, t in out["profile"]["top_ms"]:
+        log(f"[train]     {t:9.3f} ms  {n[:90]}")
+    return out
+
+
+def train_card_vs_cpu(torch, dev, cfg):
+    """(b): fp32 training on the card against the CPU from the same
+    parameters, at full width cut to TRAIN_CHECK["layers"] layers: the
+    loss and every gradient leaf; AdamW on the card applied to the CPU's
+    gradients against the CPU's AdamW (parameters, m and v); and one
+    `make_train_step` on each device (loss, grad norm).  The step's
+    parameters are compared through those two parts: Adam's first step
+    is g / (|g| + eps) per element, so where a gradient is within its
+    tolerance of eps it may move by anything up to 2 lr (their count is
+    reported)."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.models.transformer import train_loss
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import TrainConfig, init_train_state, make_train_step
+    from repro_torch.tree_util import flatten, leaves, tree_map
+
+    c = TRAIN_CHECK
+    cfg = dataclasses.replace(cfg, n_layers=c["layers"])
+    tcfg = TrainConfig(dtype=torch.float32, optimizer=adamw.AdamWConfig(
+        peak_lr=c["peak_lr"], warmup_steps=1, total_steps=10))
+    card = init_train_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(2), dev)
+    host = tree_map(lambda x: x.detach().cpu().clone(), card)
+    batch = SyntheticLM(cfg.vocab_size, c["seq"], c["batch"], seed=3).batch_at(0)
+
+    def value_and_grad(state, device):
+        flat = leaves(state.params)
+        for p in flat:
+            p.requires_grad_(True)
+        loss = train_loss(cfg, state.params, to_device(batch, device), dtype=torch.float32)
+        loss.backward()
+        grads = [p.grad.detach().cpu() for p in flat]
+        for p in flat:
+            p.grad = None
+        return float(loss.detach()), grads
+
+    def leaf_err(got, want):
+        got, want = got.detach().cpu(), want.detach()
+        return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(card, dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_loss, want_grads = value_and_grad(host, "cpu")
+    host_s = time.perf_counter() - t0
+    grad_err = max(leaf_err(g, w) for g, w in zip(grads, want_grads))
+
+    # AdamW on both devices over the CPU's gradients
+    treedef = flatten(host.params)[1]
+    clone = lambda t: tree_map(lambda x: x.detach().clone(), t)  # noqa: E731
+    got = adamw.update(tcfg.optimizer,
+                       treedef.unflatten([g.to(dev, copy=True) for g in want_grads]),
+                       clone(card.opt), clone(card.params))
+    want = adamw.update(tcfg.optimizer, treedef.unflatten([g.clone() for g in want_grads]),
+                        clone(host.opt), clone(host.params))
+    update_err = max(leaf_err(a, b) for a, b in zip(leaves(got[:2]), leaves(want[:2])))
+
+    step = make_train_step(cfg, tcfg)
+    card, m = step(card, batch)
+    host, want_m = step(host, batch)
+    step_loss_err = abs(float(m["loss"]) - float(want_m["loss"])) / abs(float(want_m["loss"]))
+    gnorm_err = abs(float(m["grad_norm"]) - float(want_m["grad_norm"])) / float(
+        want_m["grad_norm"])
+    moved = sum(int(((p.detach().cpu() - w.detach()).abs()
+                     > c["leaf_tol"] * float(w.detach().abs().max())).sum())
+                for p, w in zip(leaves(card.params), leaves(host.params)))
+    out = dict(n_layers=cfg.n_layers, batch=c["batch"], seq=c["seq"], loss=loss,
+               cpu_loss=want_loss, loss_rel_err=abs(loss - want_loss) / abs(want_loss),
+               grad_leaf_err=grad_err, update_leaf_err=update_err,
+               step_loss_rel_err=step_loss_err, step_grad_norm_rel_err=gnorm_err,
+               step_elements_beyond_leaf_tol=moved,
+               params=sum(x.numel() for x in leaves(host.params)),
+               grad_norm=float(m["grad_norm"]), cpu_grad_norm=float(want_m["grad_norm"]),
+               lr=float(want_m["lr"]), card_s=card_s, cpu_s=host_s)
+    log(f"[train] card vs CPU, fp32, {cfg.n_layers} layers at full width, batch {c['batch']} "
+        f"x {c['seq']}: loss {loss:.6f} / {want_loss:.6f} (rel {out['loss_rel_err']:.2e}, "
+        f"tol {c['loss_rel_tol']:g}), worst gradient leaf {grad_err:.2e} of the leaf's max "
+        f"(tol {c['leaf_tol']:g}); AdamW on the same gradients: worst leaf {update_err:.2e}; "
+        f"one make_train_step: loss rel {step_loss_err:.2e}, grad norm "
+        f"{out['grad_norm']:.6f} / {out['cpu_grad_norm']:.6f} (rel {gnorm_err:.2e}), "
+        f"{moved} of {out['params']} parameters beyond {c['leaf_tol']:g} of their leaf's max "
+        f"(Adam's first step where |g| is near eps)")
+    if max(out["loss_rel_err"], step_loss_err, gnorm_err) > c["loss_rel_tol"] or max(
+            grad_err, update_err) > c["leaf_tol"]:
+        raise AssertionError(f"train card vs cpu: {out}")
+    return out
+
+
+def train_restart(torch, dev, cfg):
+    """(c): the launcher's `Supervisor` at full width cut to
+    TRAIN_RESTART["layers"] layers, bf16, compressed gradients,
+    microbatches: a failure at `fail_at`, a restart from the last
+    checkpoint, the steps since replayed, and the last checkpoint
+    restored bit for bit."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.launch.train import train_fns
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.supervisor import FailureInjector, StragglerDetector, Supervisor
+    from repro_torch.train.trainer import TrainConfig
+    from repro_torch.tree_util import leaves
+
+    c = TRAIN_RESTART
+    cfg = dataclasses.replace(cfg, n_layers=c["layers"])
+    tcfg = TrainConfig(microbatches=c["microbatches"], remat=True, dtype=torch.bfloat16,
+                       compress_grads=True, optimizer=AdamWConfig(
+                           peak_lr=c["peak_lr"], warmup_steps=c["warmup_steps"],
+                           total_steps=c["steps"]))
+    make_state, step_fn = train_fns(cfg, tcfg, batch=c["batch"], seq=c["seq"], seed=0,
+                                    device=dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        ckpt = CheckpointManager(d)
+        io_s = {"save": 0.0, "wait": 0.0, "restore": 0.0}   # restore includes a wait
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    io_s[name] += time.perf_counter() - t
+            return run
+
+        for name in io_s:
+            setattr(ckpt, name, timed(name, getattr(ckpt, name)))
+        sup = Supervisor(make_state, step_fn, ckpt, ckpt_every=c["ckpt_every"],
+                         failure_injector=FailureInjector((c["fail_at"],)),
+                         straggler=StragglerDetector())
+        t0 = time.perf_counter()
+        state = sup.run(c["steps"])
+        wall = time.perf_counter() - t0
+        seen = [h["step"] for h in sup.history]
+        last = ckpt.latest_step()
+        ckpt_gb = sum(os.path.getsize(os.path.join(d, f"step_{last:08d}", f))
+                      for f in os.listdir(os.path.join(d, f"step_{last:08d}"))) / 1e9
+        t0 = time.perf_counter()
+        back = ckpt.restore(last, like=state)
+        restore_s = time.perf_counter() - t0
+        equal = all(torch.equal(a.detach(), b) for a, b in
+                    zip(leaves(state), leaves(back)))
+        steps_on_disk = ckpt.all_steps()
+    ckpt_from = c["fail_at"] // c["ckpt_every"] * c["ckpt_every"]
+    losses = [h["loss"] for h in sup.history]
+    out = dict(n_layers=cfg.n_layers, batch=c["batch"], seq=c["seq"], steps=c["steps"],
+               restarts=sup.restarts, history_steps=len(seen), replayed=list(range(
+                   ckpt_from, c["fail_at"])), first_loss=losses[0], last_loss=losses[-1],
+               checkpoints=steps_on_disk, checkpoint_gb=ckpt_gb, wall_s=wall,
+               losses=losses, restore_s=restore_s, checkpoint_io_s=io_s,
+               restored_bit_for_bit=equal,
+               stragglers=len(sup.straggler.events))
+    log(f"[train] Supervisor, {cfg.n_layers} layers at full width, bf16, compressed "
+        f"gradients, {c['microbatches']} microbatches, batch {c['batch']} x {c['seq']}: "
+        f"{c['steps']} steps with a failure at {c['fail_at']} in {wall:.1f} s, "
+        f"{sup.restarts} restart, {len(seen)} steps run; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; checkpoints {steps_on_disk} ({ckpt_gb:.2f} GB each; host s "
+        f"{ {k: round(v, 1) for k, v in io_s.items()} }), the last restored in "
+        f"{restore_s:.1f} s, equal bit for bit: {equal}")
+    twice = all(seen.count(s) == 2 for s in out["replayed"])
+    if not (sup.restarts == 1 and twice and losses[-1] < losses[0] and last == c["steps"]
+            and equal and seen[-1] == c["steps"] - 1):
+        raise AssertionError(f"train restart: {out}")
+    return out
+
+
+def phase_train(torch, dev, report):
+    """stablelm-3b trained through `launch/train.py`'s path: (a) at full
+    width, (b) one fp32 step on the card against the CPU, (c) the
+    supervisor's failure and restart."""
+    from repro_torch.configs import get_config
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    out = report["train"] = {}
+    out["full"] = train_full(torch, dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = train_card_vs_cpu(torch, dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["restart"] = train_restart(torch, dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: flash attention (kernel 5) through ops.flash_attention
 # ---------------------------------------------------------------------------
 
 FLASH_S = 4096         # stablelm-3b and phi3-medium rows
@@ -2745,6 +3113,7 @@ def main(argv) -> int:
         ("host_engine", lambda: phase_host_engine(torch, dev, report, state)),
         ("moe", lambda: phase_moe(torch, dev, report, state)),
         ("fp32", lambda: phase_fp32(torch, dev, report)),
+        ("train", lambda: phase_train(torch, dev, report)),
         ("flash", lambda: phase_flash(torch, dev, report, state)),
     ]
     for pname, fn in phases:

@@ -1,7 +1,8 @@
 """Attention: GQA projections, the chunked online-softmax attention that
-prefill runs, and one-token decode over a dense cache.
+prefill and training run, the full attention block, and one-token
+decode over a dense cache.
 
-Counterpart of `repro/models/attention.py:37-176, 244-286`.  These are
+Counterpart of `repro/models/attention.py`.  These are
 plain tensor code in the JAX package too (`chunked_attention` is a
 `lax.scan` over KV chunks; here the scan is a Python loop).
 """
@@ -124,6 +125,65 @@ def decode_attention(
     return out.reshape(B, -1, Hq, D).to(q.dtype)
 
 
+def attention_block(
+    p: dict,
+    x: torch.Tensor,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    rope_theta: float,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    positions: Optional[torch.Tensor] = None,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Full GQA block (projections + RoPE + chunked attention), the
+    weights in x's dtype.  x: [B, S, d] -> [B, S, d]."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim)
+    k = (x @ p["wk"]).reshape(B, S, n_kv_heads, head_dim)
+    v = (x @ p["wv"]).reshape(B, S, n_kv_heads, head_dim)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    out = chunked_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                            chunk=chunk)
+    return out.reshape(B, S, n_heads * head_dim) @ p["wo"]
+
+
+def attention_decode_block(
+    p: dict,
+    x: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: int,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    rope_theta: float,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+):
+    """Decode step: x [B, 1, d], cache [B, S, Hkv, D], pos an int.  The
+    new token's K/V is written into the caches at `pos` in place (JAX's
+    dynamic-update-slice).  Returns (out [B, 1, d], k_cache, v_cache)."""
+    B = x.shape[0]
+    q = (x @ p["wq"]).reshape(B, 1, n_heads, head_dim)
+    k = (x @ p["wk"]).reshape(B, 1, n_kv_heads, head_dim)
+    v = (x @ p["wv"]).reshape(B, 1, n_kv_heads, head_dim)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    k_cache[:, pos] = k[:, 0]
+    v_cache[:, pos] = v[:, 0]
+    out = decode_attention(q, k_cache, v_cache, pos + 1, window=window, softcap=softcap)
+    return out.reshape(B, 1, n_heads * head_dim) @ p["wo"], k_cache, v_cache
+
+
 def attention_decode_stacked(
     p: dict,
     x: torch.Tensor,
@@ -143,15 +203,7 @@ def attention_decode_stacked(
     [L, B, S, Hkv, D]: x [B, 1, d] -> out [B, 1, d].  The new token's K/V
     is written into `k_all` / `v_all` at position `pos` in place, then
     the layer's cache is read up to `pos` + 1."""
-    B = x.shape[0]
-    q = (x @ p["wq"]).reshape(B, 1, n_heads, head_dim)
-    k = (x @ p["wk"]).reshape(B, 1, n_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(B, 1, n_kv_heads, head_dim)
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
-    k_all[layer, :, pos] = k[:, 0]
-    v_all[layer, :, pos] = v[:, 0]
-    out = decode_attention(q, k_all[layer], v_all[layer], pos + 1, window=window,
-                           softcap=softcap)
-    return out.reshape(B, 1, n_heads * head_dim) @ p["wo"]
+    out, _, _ = attention_decode_block(
+        p, x, k_all[layer], v_all[layer], pos, n_heads=n_heads, n_kv_heads=n_kv_heads,
+        head_dim=head_dim, rope_theta=rope_theta, window=window, softcap=softcap)
+    return out

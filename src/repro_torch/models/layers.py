@@ -1,4 +1,4 @@
-"""Shared model layers: norms, RoPE, SwiGLU, embeddings.
+"""Shared model layers: norms, RoPE, MLPs, embeddings, cross-entropy.
 
 Counterpart of `repro/models/layers.py`.  Plain functions on tensors;
 `init_*` take an explicit `torch.Generator` and device and return
@@ -7,8 +7,10 @@ so parity tests move the JAX parameters over with
 `models.transformer.params_from_numpy`).
 
 The JAX layers cast each weight to the compute dtype at every matmul
-(`w.astype(dtype)`); the port keeps matmul weights in the working dtype
-from the start, which gives the same numbers.
+(`w.astype(dtype)`); the port's serving paths keep matmul weights in the
+working dtype from the start, which gives the same numbers, and training
+casts its float32 masters once per layer body
+(`models.transformer.cast_matmul`).
 """
 
 from __future__ import annotations
@@ -67,6 +69,20 @@ def apply_swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     return act @ p["w_out"]
 
 
+def init_gelu_mlp(gen: torch.Generator, d: int, ff: int, device="cuda") -> dict:
+    return {
+        "w_in": _normal(gen, (d, ff), device) * d ** -0.5,
+        "w_out": _normal(gen, (ff, d), device) * ff ** -0.5,
+    }
+
+
+def apply_gelu_mlp(p: dict, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """`jax.nn.gelu`'s default is the tanh approximation."""
+    h = x @ p["w_in"].to(dtype)
+    h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(dtype)
+    return h @ p["w_out"].to(dtype)
+
+
 def init_embedding(gen: torch.Generator, vocab: int, d: int, device="cuda"):
     return _normal(gen, (vocab, d), device) * (d ** -0.5)
 
@@ -86,6 +102,17 @@ def logits(x: torch.Tensor, table: torch.Tensor,
     if softcap:
         out = softcap * torch.tanh(out / softcap)
     return out
+
+
+def cross_entropy(lg: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token cross-entropy with an optional z-loss regularizer."""
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = lg.gather(-1, labels.long()[..., None])[..., 0]
+    loss = (lse - ll).mean()
+    if z_loss:
+        loss = loss + z_loss * lse.square().mean()
+    return loss
 
 
 def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:

@@ -59,7 +59,7 @@ def _route(router: torch.Tensor, x: torch.Tensor, top_k: int):
     (descending, lower index first among equal probabilities), and the
     aux loss over every token of `x` [..., d]."""
     E = router.shape[1]
-    logits = x.float() @ router                           # [..., E]
+    logits = x.float() @ router.float()                   # [..., E]
     probs = torch.softmax(logits, dim=-1)
     left = probs
     idx = []

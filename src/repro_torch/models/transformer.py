@@ -1,17 +1,23 @@
 """Decoder backbone of the attention families: parameters, window
-array, prefill, the dense KV cache and its decode step.
+array, the training forward and loss, prefill, the dense KV cache and
+its decode step.
 
-Counterpart of `repro/models/transformer.py:68-141, 279-381, 469-546`
-for the families whose layers are GQA attention followed by SwiGLU or
-MoE (dense, moe, vlm, audio); hybrid and ssm come with a later slice.
-Layer parameters are stacked on a leading [n_layers] axis as in the JAX
-package, and the scan over layers is a Python loop over views.
+Counterpart of `repro/models/transformer.py` for the families whose
+layers are GQA attention followed by SwiGLU or MoE (dense, moe, vlm,
+audio); hybrid and ssm come with a later slice.  Layer parameters are
+stacked on a leading [n_layers] axis as in the JAX package, and the scan
+over layers is a Python loop over views; `remat` (JAX's
+`jax.checkpoint` on the scan body) checkpoints each layer with
+`torch.utils.checkpoint`.
 
-Parameter dtypes: the matmul weights (attention, MLP and expert
-projections) are held in the working dtype; embeddings, the LM head,
-the norm scales and the MoE router stay float32, as the JAX layers read
-them (`embed` casts the gathered rows, `logits` works in float32, the
-router multiplies float32 activations).
+Parameter dtypes: for serving, the matmul weights (attention, MLP and
+expert projections) are held in the working dtype; embeddings, the LM
+head, the norm scales and the MoE router stay float32, as the JAX layers
+read them (`embed` casts the gathered rows, `logits` works in float32,
+the router multiplies float32 activations).  Training holds every leaf
+in float32 (master weights) and each layer body casts its matmul
+weights (`cast_matmul`), inside the checkpoint, so the cast copies are
+recomputed in the backward and not kept.
 """
 
 from __future__ import annotations
@@ -20,10 +26,12 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import (
+    attention_block,
     attention_decode_stacked,
     chunked_attention,
     init_attention,
@@ -31,6 +39,7 @@ from repro_torch.models.attention import (
 from repro_torch.models.layers import (
     apply_rope,
     apply_swiglu,
+    cross_entropy,
     embed,
     init_embedding,
     init_rms_norm,
@@ -53,6 +62,27 @@ def check_family(cfg: ArchConfig) -> None:
             f"({', '.join(ATTENTION_FAMILIES)}) only; the {cfg.family} family "
             "comes with a later slice"
         )
+
+
+def _attn_kwargs(cfg: ArchConfig) -> dict:
+    return dict(
+        n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim,
+        rope_theta=cfg.rope_theta,
+        softcap=cfg.attn_softcap or None,
+    )
+
+
+def cast_matmul(lp: dict, dtype) -> dict:
+    """A layer's parameters with the matmul weights in `dtype` (an
+    autograd-tracked cast; a no-op where they are in it already)."""
+    def conv(node, name=""):
+        if isinstance(node, dict):
+            return {k: conv(v, k) for k, v in node.items()}
+        return node.to(dtype) if name in _MATMUL else node
+
+    return conv(lp)
 
 
 def _ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor, dispatch: str) -> torch.Tensor:
@@ -149,6 +179,76 @@ def window_array(cfg: ArchConfig) -> list:
     return [pat[i % len(pat)] for i in range(cfg.n_layers)]
 
 
+def _unstack(tree, n: int) -> list:
+    """Per-layer views of stacked parameters, by one `unbind` per leaf:
+    its backward stacks the layers' gradients once, where indexing each
+    layer would add a zero-filled gradient of the whole stack per layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
+def _dense_body(cfg: ArchConfig, carry, xs):
+    """One training layer: (x, aux) -> (x, aux).  MoE layers run at the
+    training capacity factor and add their aux loss."""
+    x, aux = carry
+    lp, window = xs
+    lp = cast_matmul(lp, x.dtype)
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    h = attention_block(lp["attn"], h, window=window, **_attn_kwargs(cfg))
+    if cfg.post_norm:
+        h = rms_norm(h, lp["ln1_post"], cfg.norm_eps)
+    x = x + h
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.n_experts:
+        h, a = moe_lib.apply_moe(
+            lp["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+            dtype=h.dtype, n_blocks=cfg.dispatch_blocks, dispatch=cfg.dispatch_mode,
+            group_size=cfg.dispatch_group,
+        )
+        aux = aux + a
+    else:
+        h = apply_swiglu(lp["mlp"], h)
+    if cfg.post_norm:
+        h = rms_norm(h, lp["ln2_post"], cfg.norm_eps)
+    return x + h, aux
+
+
+def forward(cfg: ArchConfig, params: dict, x: torch.Tensor, *, remat: bool = False):
+    """x: [B, S, d] embedded inputs -> (hidden [B, S, d], aux loss)."""
+    check_family(cfg)
+    carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
+    for lp, window in zip(_unstack(params["layers"], cfg.n_layers), window_array(cfg)):
+        if remat:
+            carry = checkpoint(_dense_body, cfg, carry, (lp, window),
+                               use_reentrant=False, preserve_rng_state=False)
+        else:
+            carry = _dense_body(cfg, carry, (lp, window))
+    x, aux = carry
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def _embed_inputs(cfg: ArchConfig, params: dict, batch: dict, dtype) -> torch.Tensor:
+    if cfg.frontend != "none" and "embeds" in batch:
+        # Modality frontend is a stub: precomputed frame/patch embeddings.
+        return batch["embeds"].to(dtype)
+    return embed(params["embed"], batch["tokens"], dtype, scale=cfg.embed_scale)
+
+
+def train_loss(cfg: ArchConfig, params: dict, batch: dict, *, dtype=torch.bfloat16,
+               remat: bool = True) -> torch.Tensor:
+    """Mean token cross-entropy (z-loss 1e-4) plus 0.01 x the MoE aux
+    loss; `batch` holds "labels" [B, S] and "tokens" [B, S] or, for the
+    stub frontends, "embeds" [B, S, d]."""
+    check_family(cfg)
+    x = _embed_inputs(cfg, params, batch, dtype)
+    h, aux = forward(cfg, params, x, remat=remat)
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    lg = lm_logits(h, table, cfg.final_softcap or None)
+    return cross_entropy(lg, batch["labels"]) + 0.01 * aux
+
+
 def prefill(
     cfg: ArchConfig,
     params: dict,
@@ -158,12 +258,12 @@ def prefill(
     dtype=torch.bfloat16,
 ):
     """Process the prompt; returns (last-token logits [B, V] float32,
-    cache {"k", "v": [L, B, max_len, Hkv, D] in `dtype`, "pos": S})."""
+    cache {"k", "v": [L, B, max_len, Hkv, D] in `dtype`, "pos": S}).  The
+    stub frontends take `batch["embeds"]` [B, S, d] where it is given."""
     check_family(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    dev = tokens.device
-    x = embed(params["embed"], tokens, dtype, scale=cfg.embed_scale)
+    x = _embed_inputs(cfg, params, batch, dtype)
+    B, S = x.shape[:2]
+    dev = x.device
     positions = torch.arange(S, device=dev)[None, :]
     cache = init_cache(cfg, B, max_len, dtype, dev)
     softcap = cfg.attn_softcap or None
@@ -214,13 +314,11 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor
     check_family(cfg)
     pos = cache["pos"]
     x = embed(params["embed"], tokens[:, None], dtype, scale=cfg.embed_scale)
-    akw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-               rope_theta=cfg.rope_theta, softcap=cfg.attn_softcap or None)
     for li, window in enumerate(window_array(cfg)):
         lp = layer_params(params, li)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         h = attention_decode_stacked(lp["attn"], h, cache["k"], cache["v"], li, pos,
-                                     window=window, **akw)
+                                     window=window, **_attn_kwargs(cfg))
         if cfg.post_norm:
             h = rms_norm(h, lp["ln1_post"], cfg.norm_eps)
         x = x + h
