@@ -157,7 +157,28 @@ Phases (any failure fails the run, exit code 1):
      checkpoint every 10, a failure at 17: one restart, steps 10-16
      replayed, the loss lower at the end, the last checkpoint restored
      bit for bit;
-  11. flash: with its launch count at 0, the differentiable
+  11. ssm: the hybrid and ssm families, zamba2-1.2b (38 Mamba2 layers,
+     the shared attention block at 19 sites) and rwkv6-7b (32 RWKV6
+     layers), no kernel of the port on their path (JAX runs the SSD and
+     wkv scans in plain jnp): (a) serving at full width, random bf16
+     weights from seed 0: `prefill` of 8 prompts of 512 tokens into a
+     cache of 576, then 64 greedy `decode_step`s over the dense cache:
+     prefill s and its scan's share, steady ms per decode step (CUDA
+     events), tokens/s, peak memory, one profiled step (kernel launches,
+     device idle share), every logit finite; (b) decode consistency at
+     full width and depth, B=4, S=64: prefill(65) against prefill(64) +
+     decode_step within 1e-4 of the logits' norm in fp32 (TF32 off;
+     rwkv6, chaotic in depth with random weights, held at its first 8
+     layers and measured at 32) and 2^-3 in bf16; (c) fp32 at full width
+     cut to 2 layers (zamba2: 2 groups of 2) against the same on CPU
+     tensors: prefill's logits (1e-4 of their norm) and every cache leaf
+     (2e-5), 4 decode steps, then `train_loss` (1e-5 relative) and its
+     gradients (1e-4 of each leaf's max, or twice the CPU's own spread
+     under 1e-7 parameter noise where that is larger); (d) training through `launch/train.py`'s path, bf16
+     over float32 masters, remat, 3 steps: zamba2 at full depth, 4 x 512,
+     rwkv6 cut to 4 layers, 4 x 256, each in 2 microbatches: ms per
+     step, tokens/s, peak memory, finite losses;
+  12. flash: with its launch count at 0, the differentiable
      `ops.flash_attention` (kernel 5 forward) at full attention width in
      bf16, B=1: stablelm-3b (32/32 heads, D=80, S=4096, causal),
      phi3-medium-14b (40/10, D=128, S=4096, causal), gemma2-27b global
@@ -2879,7 +2900,445 @@ def phase_train(torch, dev, report):
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: flash attention (kernel 5) through ops.flash_attention
+# Phase 11: the hybrid and ssm families (zamba2-1.2b, rwkv6-7b)
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("zamba2-1.2b", "rwkv6-7b")
+# (a) serving at full width and depth, bf16: `batch` prompts of `prompt`
+# tokens, prefill into a cache of `max_len`, then `steps` greedy decode
+# steps (the first `warm` untimed, the last one profiled)
+SSM_SERVE = dict(batch=8, prompt=512, max_len=576, steps=64, warm=4)
+# (b) decode consistency at full width and depth: prefill(S+1)'s last
+# logits against prefill(S) + decode_step, relative to their norm.  fp32
+# (TF32 off) within 1e-4, phase moe's limit.  The bf16 limit was set
+# before the first card run from the CPU gap at the reduced configs (this
+# function in a CPU rehearsal of the phase, B=4, S=64): zamba2 1.047e-2
+# over its 4 Mamba2 layers (prefill's conv sums in float32, decode's in
+# bf16, as in JAX), rwkv6 0; over 38 layers the gap may grow about 3x
+# (roundings adding like a random walk over 10x the layers), so 2^-3.
+# rwkv6 with random weights is chaotic in depth: in fp32 on the card
+# prefill(65) and prefill(64) + decode_step (other GEMM shapes, other
+# summation orders) differ by 3.8e-5 at 8 layers and 1.4e-2 at 32, a
+# growth of about 1.28x per layer.  So its fp32 check holds the first
+# `fp32_layers` layers to 1e-4, as phase moe holds 8, and reports the
+# full depth
+SSM_CONSISTENCY = dict(B=4, S=64, fp32_rel_tol=1e-4, bf16_rel_tol=2.0 ** -3,
+                       fp32_layers={"rwkv6-7b": 8})
+# (c) fp32 on the card against the CPU at full width cut to `layers`
+# (zamba2: 2 groups of 2 Mamba2 layers): prefill's logits and cache, then
+# `decode_steps` steps (logits within 1e-4 of their norm, every cache leaf
+# within 2e-5 of its norm); train_loss within 1e-5 relative, as phase
+# train (b) holds it, and each gradient leaf within 1e-4 of its max or,
+# where the gradients are worse conditioned than that, within twice the
+# CPU's own spread: how far its gradients move when the parameters move
+# by 1e-7 of themselves.  At 2 layers of full width rwkv6's move by up
+# to 1.43e-4 of a leaf's max under that noise on an H100's host, so 1e-4
+# is below what two summation orders can promise
+SSM_CHECK = dict(layers={"zamba2-1.2b": 4, "rwkv6-7b": 2}, B=2, S=32, decode_steps=4,
+                 train_seq=64, logit_rel_tol=1e-4, leaf_rel_tol=2e-5, loss_rel_tol=1e-5,
+                 grad_leaf_tol=1e-4, noise_floor_factor=2)
+# (d) training through launch/train.py's path, bf16 over float32 masters,
+# remat: zamba2 at full depth, rwkv6 cut to 4 of its 32 layers
+SSM_TRAIN = {"zamba2-1.2b": dict(layers=None, batch=4, seq=512, microbatches=2, steps=3),
+             "rwkv6-7b": dict(layers=4, batch=4, seq=256, microbatches=2, steps=3)}
+
+
+class EventTimer:
+    """Device time of the calls of wrapped functions (CUDA events around
+    each call, summed after a synchronize): the time the card spends from
+    the call's first op to its last, its own idle gaps included."""
+
+    def __init__(self, torch):
+        self.torch, self.pairs = torch, {}
+
+    def wrap(self, name, fn):
+        Event = self.torch.cuda.Event
+        pairs = self.pairs.setdefault(name, [])
+
+        def run(*a, **kw):
+            ev = (Event(enable_timing=True), Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            pairs.append(ev)
+            return out
+        return run
+
+    def take(self, name):
+        """Summed ms and call count of `name` since the last take."""
+        self.torch.cuda.synchronize()
+        pairs = self.pairs.get(name, [])
+        ms = sum(a.elapsed_time(b) for a, b in pairs)
+        n = len(pairs)
+        del pairs[:]
+        return ms, n
+
+
+def ssm_tokens(torch, cfg, B, S, seed):
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(seed))
+
+
+def ssm_serve(torch, dev, name):
+    """(a): `prefill` of B prompts, then greedy `decode_step`s over the
+    dense cache, bf16 at full width: prefill s (and its scan's share),
+    steady ms per decode step (CUDA events), decode tokens/s, peak
+    memory, and one profiled step (launches, device idle share).
+    Returns (the row, the parameters)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv as rwkv_lib
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.transformer import decode_step, init_params, prefill
+    from repro_torch.tree_util import leaves, tree_map
+
+    r = SSM_SERVE
+    cfg = get_config(name)
+    bf16 = torch.bfloat16
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                         dtype=bf16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = sum(x.numel() * x.element_size() for x in leaves(params)) / 1e9
+    toks = ssm_tokens(torch, cfg, r["batch"], r["prompt"], 11).to(dev)
+    # the sequential scan: the SSD chunk loop's body, or the wkv recurrence
+    mod, fn = (ssm_lib, "_chunk_step") if cfg.family == "hybrid" else (rwkv_lib, "_wkv_scan")
+    timer, plain = EventTimer(torch), getattr(mod, fn)
+    setattr(mod, fn, timer.wrap("scan", plain))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = prefill(cfg, params, {"tokens": toks}, r["max_len"], dtype=bf16)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_scan_ms, prefill_scan_calls = timer.take("scan")
+        finite = torch.isfinite(lg).all()
+        tok = lg.argmax(-1)
+        out_tokens, step_events = [tok], []
+        for _ in range(r["steps"] - 1):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            lg, cache = decode_step(cfg, params, cache, tok, dtype=bf16)
+            ev[1].record()
+            step_events.append(ev)
+            finite = finite & torch.isfinite(lg).all()
+            tok = lg.argmax(-1)
+            out_tokens.append(tok)
+        scan_ms, scan_calls = timer.take("scan")
+    finally:
+        setattr(mod, fn, plain)
+    step_ms = [a.elapsed_time(b) for a, b in step_events]
+    steady = step_ms[r["warm"]:]
+    ms = sum(steady) / len(steady)
+    # the wkv scan's share of the decode steps (all of them); zamba2's
+    # decode has no scan, one recurrence step per layer
+    decode_scan_share = scan_ms / sum(step_ms) if cfg.family == "ssm" else None
+    # the last step, profiled on a copy of the cache: a trace now and then
+    # comes back without its device events, and a retry needs the same state
+    copy = lambda t: tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, t)  # noqa: E731
+    snap = copy(cache)
+    kind = "CUDA" if dev.type == "cuda" else "CPU"
+    acts = [ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU]
+    for _ in range(3):
+        run_cache = copy(snap)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            lg, run_cache = decode_step(cfg, params, run_cache, tok, dtype=bf16)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events()
+                  if str(getattr(e, "device_type", "")).endswith(kind)]
+        if events:
+            break
+    else:
+        raise AssertionError(f"{name}: three profiled decode steps gave no device events")
+    finite = finite & torch.isfinite(lg).all()
+    out_tokens.append(lg.argmax(-1))
+    kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+    busy = device_busy(events) / 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    tokens = torch.stack(out_tokens, 1).cpu()
+    if not bool(finite) or run_cache["pos"] != r["max_len"]:
+        raise AssertionError(f"{name}: non-finite logits or pos {run_cache['pos']}")
+    out = dict(arch=name, n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+               batch=r["batch"], prompt=r["prompt"], max_len=r["max_len"],
+               decode_steps=r["steps"], init_s=init_s, weight_gb=weight_gb,
+               prefill_s=prefill_s, prefill_scan_ms=prefill_scan_ms,
+               prefill_scan_calls=prefill_scan_calls,
+               prefill_scan_share=prefill_scan_ms / (prefill_s * 1e3),
+               decode_step_ms=step_ms, ms_per_decode_step=ms,
+               decode_tokens_per_s=r["batch"] / (ms / 1e3),
+               decode_scan_ms=scan_ms, decode_scan_calls=scan_calls,
+               decode_scan_share=decode_scan_share, peak_memory_gb=peak / 1e9,
+               profiled_step=dict(wall_ms=wall_ms, device_busy_ms=busy,
+                                  idle_share=1 - busy / wall_ms, launches=len(kernels),
+                                  device_events=len(events)),
+               tokens=tokens.tolist())
+    scan_name = "SSD chunk scan" if cfg.family == "hybrid" else "wkv scan"
+    log(f"[ssm] {name} full width ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}; {weight_gb:.2f} GB of weights, bf16 projections) from seed 0 in "
+        f"{init_s:.1f} s; B={r['batch']} prompts of {r['prompt']}, cache {r['max_len']}")
+    log(f"[ssm]   prefill {prefill_s:.3f} s, the {scan_name} {prefill_scan_ms:.1f} ms of it "
+        f"({100 * out['prefill_scan_share']:.1f}%, {prefill_scan_calls} calls); decode "
+        f"{ms:.3f} ms per step (steady, CUDA events; the first steps "
+        f"{[round(t, 2) for t in step_ms[:6]]}), {out['decode_tokens_per_s']:.1f} tokens/s"
+        + (f", the wkv scan {100 * decode_scan_share:.1f}% of the steps"
+           if decode_scan_share is not None else "")
+        + f"; peak {out['peak_memory_gb']:.2f} GB")
+    log(f"[ssm]   profiled step: {wall_ms:.2f} ms wall, device busy {busy:.2f} ms (idle "
+        f"{out['profiled_step']['idle_share']:.4f}), {len(kernels)} kernel launches")
+    return out, params
+
+
+def ssm_consistency(torch, dev, cfg, params, dtype, tol):
+    """(b): prefill(S+1)'s last logits against prefill(S) + decode_step,
+    relative to their norm; "ok" if within `tol` (None: measured, not
+    held)."""
+    from repro_torch.models.transformer import decode_step, prefill
+
+    B, S = SSM_CONSISTENCY["B"], SSM_CONSISTENCY["S"]
+    toks = ssm_tokens(torch, cfg, B, S + 1, 7).to(dev)
+    full, _ = prefill(cfg, params, {"tokens": toks}, S + 4, dtype=dtype)
+    _, cache = prefill(cfg, params, {"tokens": toks[:, :S]}, S + 4, dtype=dtype)
+    dec, cache = decode_step(cfg, params, cache, toks[:, S], dtype=dtype)
+    rel = float((dec - full).norm() / full.norm())
+    row = dict(dtype=str(dtype).replace("torch.", ""), n_layers=cfg.n_layers, B=B, S=S,
+               rel_err=rel, rel_tol=tol, max_abs_err=float((dec - full).abs().max()),
+               logit_scale=float(full.abs().max()),
+               argmax_equal=int((dec.argmax(-1) == full.argmax(-1)).sum()))
+    row["ok"] = bool((tol is None or rel <= tol) and torch.isfinite(dec).all()
+                     and cache["pos"] == S + 1)
+    log(f"[ssm]   prefill({S + 1}) against prefill({S}) + decode_step, {cfg.name}, "
+        f"{cfg.n_layers} layers, B={B}, {row['dtype']}: relative error {rel:.3e} (limit "
+        f"{'none, measured' if tol is None else f'{tol:.3e}'}), max |diff| "
+        f"{row['max_abs_err']:.3e} of logits up to {row['logit_scale']:.2f}, argmax equal "
+        f"in {row['argmax_equal']} of {B} rows")
+    return row
+
+
+def ssm_card_vs_cpu(torch, dev, name):
+    """(c): fp32 at full width cut to SSM_CHECK's layers, the card against
+    the same on CPU tensors in this process: `prefill` (logits, every
+    cache leaf), `decode_step`s on the CPU's greedy tokens, then
+    `train_loss` and its gradients."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.models.transformer import (
+        decode_step,
+        init_params,
+        prefill,
+        train_loss,
+    )
+    from repro_torch.tree_util import flatten, leaves, tree_map
+
+    c = SSM_CHECK
+    cfg = dataclasses.replace(get_config(name), n_layers=c["layers"][name])
+    f32 = torch.float32
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(3), device=dev,
+                         dtype=f32)
+    host = tree_map(lambda x: x.cpu(), params)
+    toks = ssm_tokens(torch, cfg, c["B"], c["S"], 12)
+
+    def rel(got, want):
+        got, want = got.detach().cpu(), want.detach()
+        return float((got - want).norm()) / max(float(want.norm()), 1e-30)
+
+    def cache_leaves(cache):
+        flat, treedef = flatten({k: v for k, v in cache.items() if k != "pos"})
+        return flat, str(treedef)
+
+    max_len = c["S"] + c["decode_steps"]
+    t0 = time.perf_counter()
+    lg, cache = prefill(cfg, params, {"tokens": toks.to(dev)}, max_len, dtype=f32)
+    want, hcache = prefill(cfg, host, {"tokens": toks}, max_len, dtype=f32)
+    logit_err = [rel(lg, want)]
+    prefill_leaf_err = max(rel(a, b) for a, b in zip(cache_leaves(cache)[0],
+                                                     cache_leaves(hcache)[0]))
+    for _ in range(c["decode_steps"]):
+        tok = want.argmax(-1)
+        lg, cache = decode_step(cfg, params, cache, tok.to(dev), dtype=f32)
+        want, hcache = decode_step(cfg, host, hcache, tok, dtype=f32)
+        logit_err.append(rel(lg, want))
+    (mine, tree_a), (theirs, tree_b) = cache_leaves(cache), cache_leaves(hcache)
+    decode_leaf_err = max(rel(a, b) for a, b in zip(mine, theirs))
+    serve_s = time.perf_counter() - t0
+
+    batch = SyntheticLM(cfg.vocab_size, c["train_seq"], c["B"], seed=3).batch_at(0)
+
+    def value_and_grad(p, device):
+        flat = leaves(p)
+        for x in flat:
+            x.requires_grad_(True)
+        loss = train_loss(cfg, p, to_device(batch, device), dtype=f32)
+        loss.backward()
+        grads = [x.grad.detach().cpu() for x in flat]
+        for x in flat:
+            x.grad = None
+            x.requires_grad_(False)
+        return float(loss.detach()), grads
+
+    def leaf_errs(got):
+        return [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for g, w in zip(got, want_grads)]
+
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(params, dev)
+    want_loss, want_grads = value_and_grad(host, "cpu")
+    # the gradients' own conditioning: the CPU's, from parameters moved by
+    # 1e-7 of themselves (about an ulp)
+    gen = torch.Generator().manual_seed(5)
+    nudged = tree_map(lambda x: x * (1 + 1e-7 * torch.randn(x.shape, generator=gen)), host)
+    floor = max(leaf_errs(value_and_grad(nudged, "cpu")[1]))
+    del nudged
+    train_s = time.perf_counter() - t0
+    errs = leaf_errs(grads)
+    grad_err = max(errs)
+    grad_tol = max(c["grad_leaf_tol"], c["noise_floor_factor"] * floor)
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    out = dict(arch=name, n_layers=cfg.n_layers, B=c["B"], S=c["S"],
+               logit_rel_err=logit_err, prefill_leaf_rel_err=prefill_leaf_err,
+               decode_leaf_rel_err=decode_leaf_err, cache_leaves=len(mine),
+               loss=loss, cpu_loss=want_loss, loss_rel_err=loss_err,
+               grad_leaf_err=grad_err, grad_noise_floor=floor, grad_leaf_tol=grad_tol,
+               train_seq=c["train_seq"], serve_s=serve_s, train_s=train_s)
+    log(f"[ssm]   {name} card vs CPU, fp32, {cfg.n_layers} layers at full width: logits "
+        f"(prefill, then {c['decode_steps']} decode steps) {[f'{e:.2e}' for e in logit_err]}"
+        f" of their norm (limit {c['logit_rel_tol']:g}); worst of {len(mine)} cache leaves "
+        f"{prefill_leaf_err:.2e} after prefill, {decode_leaf_err:.2e} after decode (limit "
+        f"{c['leaf_rel_tol']:g}); train_loss {loss:.6f} / {want_loss:.6f} (rel "
+        f"{loss_err:.2e}, limit {c['loss_rel_tol']:g}), worst gradient leaf {grad_err:.2e} "
+        f"of its max (limit {grad_tol:.2e}: the CPU's own gradients move by {floor:.2e} "
+        f"under 1e-7 parameter noise); {serve_s:.1f} s + {train_s:.1f} s")
+    out["worst_grad_leaves"] = sorted(zip(errs, leaf_paths(host)), reverse=True)[:4]
+    out["ok"] = not (tree_a != tree_b or max(logit_err) > c["logit_rel_tol"]
+                     or max(prefill_leaf_err, decode_leaf_err) > c["leaf_rel_tol"]
+                     or loss_err > c["loss_rel_tol"] or grad_err > grad_tol)
+    log(f"[ssm]     worst gradient leaves: {out['worst_grad_leaves']}")
+    return out
+
+
+def leaf_paths(tree, prefix=""):
+    """'/'-joined key paths of a dict tree's leaves, in `tree_util` order
+    (keys sorted)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def ssm_train(torch, dev, name):
+    """(d): `launch/train.py`'s path (`train_fns`), bf16 over float32
+    masters, remat: ms per step (CUDA events; the first warms up),
+    tokens/s, peak memory, finite losses."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_fns
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig
+    from repro_torch.tree_util import leaves
+
+    r = SSM_TRAIN[name]
+    cfg = get_config(name)
+    if r["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=r["layers"])
+    tcfg = TrainConfig(microbatches=r["microbatches"], remat=True, dtype=torch.bfloat16,
+                       optimizer=AdamWConfig(peak_lr=3e-4, warmup_steps=1,
+                                             total_steps=r["steps"]))
+    make_state, step_fn = train_fns(cfg, tcfg, batch=r["batch"], seq=r["seq"], seed=0,
+                                    device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = make_state()
+    n_params = sum(x.numel() for x in leaves(state.params))
+    steps = []
+    for i in range(r["steps"]):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, m = step_fn(state, i)
+        ev[1].record()
+        steps.append((ev, m))
+    torch.cuda.synchronize()
+    step_ms = [ev[0].elapsed_time(ev[1]) for ev, _ in steps]
+    losses = [float(m["loss"]) for _, m in steps]
+    gnorms = [float(m["grad_norm"]) for _, m in steps]
+    ms = sum(step_ms[1:]) / len(step_ms[1:])
+    tokens = r["batch"] * r["seq"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = dict(arch=name, n_layers=cfg.n_layers, params=n_params, batch=r["batch"],
+               seq=r["seq"], microbatches=r["microbatches"], step_ms=step_ms,
+               ms_per_step=ms, tokens_per_s=tokens / (ms / 1e3), peak_memory_gb=peak / 1e9,
+               losses=losses, grad_norms=gnorms)
+    log(f"[ssm]   {name} training, {cfg.n_layers} layers at full width ({n_params} "
+        f"parameters), bf16 over float32 masters, remat, {r['batch']} x {r['seq']} in "
+        f"{r['microbatches']} microbatches: steps {[round(t, 1) for t in step_ms]} ms, "
+        f"steady {ms:.1f} ms, {out['tokens_per_s']:.1f} tokens/s, peak "
+        f"{out['peak_memory_gb']:.2f} GB; losses {[round(v, 4) for v in losses]}")
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        raise AssertionError(f"{name} training: losses {losses}, grad norms {gnorms}")
+    return out
+
+
+def phase_ssm(torch, dev, report):
+    """zamba2-1.2b and rwkv6-7b on the card, no kernel of the port on
+    their path: (a) serving at full width, (b) decode consistency in bf16
+    and fp32, (c) fp32 card against CPU at 2 layers, (d) training."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree_util import tree_map
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = report["ssm"] = {"card": report.get("card")}
+    c = SSM_CONSISTENCY
+    for name in SSM_ARCHS:
+        row = out[name] = {}
+        row["serve"], params = ssm_serve(torch, dev, name)
+        cfg = get_config(name)
+        row["consistency_bf16"] = ssm_consistency(torch, dev, cfg, params, torch.bfloat16,
+                                                  c["bf16_rel_tol"])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                             dtype=torch.float32)
+        cut = c["fp32_layers"].get(name)
+        row["consistency_fp32"] = [ssm_consistency(torch, dev, cfg, params, torch.float32,
+                                                   None if cut else c["fp32_rel_tol"])]
+        if cut:   # the first `cut` layers of the same parameters
+            stack = "groups" if cfg.family == "hybrid" else "layers"
+            short = dict(params, **{stack: tree_map(lambda a: a[:cut], params[stack])})
+            row["consistency_fp32"].append(ssm_consistency(
+                torch, dev, dataclasses.replace(cfg, n_layers=cut), short, torch.float32,
+                c["fp32_rel_tol"]))
+            del short
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["card_vs_cpu"] = ssm_card_vs_cpu(torch, dev, name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["train"] = ssm_train(torch, dev, name)
+        gc.collect()
+        torch.cuda.empty_cache()
+    failed = [(name, k) for name in SSM_ARCHS for k in ("consistency_bf16", "card_vs_cpu")
+              if not out[name][k]["ok"]] + [
+        (name, f"consistency_fp32 at {r['n_layers']} layers") for name in SSM_ARCHS
+        for r in out[name]["consistency_fp32"] if not r["ok"]]
+    if failed:
+        raise AssertionError(f"phase ssm: {failed}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: flash attention (kernel 5) through ops.flash_attention
 # ---------------------------------------------------------------------------
 
 FLASH_S = 4096         # stablelm-3b and phi3-medium rows
@@ -3114,6 +3573,7 @@ def main(argv) -> int:
         ("moe", lambda: phase_moe(torch, dev, report, state)),
         ("fp32", lambda: phase_fp32(torch, dev, report)),
         ("train", lambda: phase_train(torch, dev, report)),
+        ("ssm", lambda: phase_ssm(torch, dev, report)),
         ("flash", lambda: phase_flash(torch, dev, report, state)),
     ]
     for pname, fn in phases:

@@ -1,27 +1,40 @@
-"""Decoder backbone of the attention families: parameters, window
-array, the training forward and loss, prefill, the dense KV cache and
-its decode step.
+"""Decoder backbone for all six families: parameters, window array, the
+training forward and loss, prefill, the dense cache and its decode step.
 
-Counterpart of `repro/models/transformer.py` for the families whose
-layers are GQA attention followed by SwiGLU or MoE (dense, moe, vlm,
-audio); hybrid and ssm come with a later slice.  Layer parameters are
-stacked on a leading [n_layers] axis as in the JAX package, and the scan
-over layers is a Python loop over views; `remat` (JAX's
-`jax.checkpoint` on the scan body) checkpoints each layer with
-`torch.utils.checkpoint`.
+Counterpart of `repro/models/transformer.py`.  One backbone, three
+family bodies:
 
-Parameter dtypes: for serving, the matmul weights (attention, MLP and
-expert projections) are held in the working dtype; embeddings, the LM
-head, the norm scales and the MoE router stay float32, as the JAX layers
-read them (`embed` casts the gathered rows, `logits` works in float32,
-the router multiplies float32 activations).  Training holds every leaf
-in float32 (master weights) and each layer body casts its matmul
-weights (`cast_matmul`), inside the checkpoint, so the cast copies are
-recomputed in the backward and not kept.
+  dense/moe/vlm/audio  GQA attention + SwiGLU or MoE, a sliding window
+                       per layer (gemma2's local/global alternation).
+  hybrid (zamba2)      groups of `attn_every` Mamba2 mixers followed by
+                       one *shared* attention block (shared parameters,
+                       one KV cache site per group).
+  ssm (rwkv6)          RWKV6 time-mix/channel-mix blocks.
+
+Layer parameters are stacked as in the JAX package: on a leading
+[n_layers] axis, and the hybrid's Mamba2 layers on [G, attn_every].  The
+scan over layers is a Python loop over views; `remat` (JAX's
+`jax.checkpoint` on the scan body) checkpoints each scan step with
+`torch.utils.checkpoint`: one layer, or one hybrid group (its Mamba2
+layers and the shared block, whose parameters enter every group's
+checkpoint and collect the sum of the G sites' gradients).
+
+Parameter dtypes: for serving, the matmul weights (`_MATMUL`: attention,
+MLP, expert, Mamba2 and RWKV projections) are held in the working dtype;
+everything else (embeddings, the LM head, norm scales, the MoE router,
+the Mamba2 conv and per-head leaves, the RWKV mixes, decay LoRA and
+bonus) stays float32, as the JAX layers read them (`embed` casts the
+gathered rows, `logits` works in float32, the router and the decay LoRA
+multiply float32 activations, the mixes and decode's conv cast at use).
+Training holds every leaf in float32 (master weights) and each layer
+body casts its matmul weights (`cast_matmul`), inside the checkpoint,
+so the cast copies are recomputed in the backward and not kept.
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
 from typing import Dict
 
 import numpy as np
@@ -30,6 +43,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import (
     attention_block,
     attention_decode_stacked,
@@ -48,20 +63,12 @@ from repro_torch.models.layers import (
     rms_norm,
 )
 
-_MATMUL = {"wq", "wk", "wv", "wo", "w_gate", "w_in", "w_out"}
+# the weights JAX casts to the compute dtype (`.astype(dtype)`) at their matmul
+_MATMUL = {"wq", "wk", "wv", "wo", "w_gate", "w_in", "w_out",
+           "w_r", "w_k", "w_v", "w_g", "w_o", "cm_k", "cm_v", "cm_r"}
 
 
 ATTENTION_FAMILIES = ("dense", "moe", "vlm", "audio")
-
-
-def check_family(cfg: ArchConfig) -> None:
-    """Refuse the families the port does not have yet."""
-    if cfg.family not in ATTENTION_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the port has the attention families "
-            f"({', '.join(ATTENTION_FAMILIES)}) only; the {cfg.family} family "
-            "comes with a later slice"
-        )
 
 
 def _attn_kwargs(cfg: ArchConfig) -> dict:
@@ -72,6 +79,10 @@ def _attn_kwargs(cfg: ArchConfig) -> dict:
         rope_theta=cfg.rope_theta,
         softcap=cfg.attn_softcap or None,
     )
+
+
+def _mamba_kwargs(cfg: ArchConfig) -> dict:
+    return dict(d_inner=cfg.d_inner, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim)
 
 
 def cast_matmul(lp: dict, dtype) -> dict:
@@ -101,48 +112,72 @@ def _ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor, dispatch: str) -> torch.Ten
     return y
 
 
+def _stack_into(dst: dict, idx, tree: dict, lead: tuple, device, dtype) -> None:
+    """Write one layer's parameters `tree` at `idx` of the stacked leaves
+    in `dst`, allocated at the first layer as [*lead, ...]: matmul
+    weights in `dtype`, the rest float32."""
+    for name, w in tree.items():
+        if isinstance(w, dict):
+            _stack_into(dst.setdefault(name, {}), idx, w, lead, device, dtype)
+            continue
+        if name not in dst:
+            dst[name] = torch.empty(lead + tuple(w.shape), device=device,
+                                    dtype=dtype if name in _MATMUL else torch.float32)
+        dst[name][idx] = w
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator, device="cuda",
                 dtype=torch.float32) -> dict:
     """Random parameters from `gen` (float32 draws; matmul weights then
     cast to `dtype`), built one layer at a time so the float32 copy of
     the whole model never exists at once."""
-    check_family(cfg)
-    L, d = cfg.n_layers, cfg.d_model
+    d = cfg.d_model
     params: Dict = {
         "embed": init_embedding(gen, cfg.vocab_size, d, device),
         "final_norm": init_rms_norm(d, device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init_embedding(gen, cfg.vocab_size, d, device)
-    layers: Dict = {
-        "ln1": torch.zeros((L, d), dtype=torch.float32, device=device),
-        "ln2": torch.zeros((L, d), dtype=torch.float32, device=device),
-        "attn": {},
-        "moe" if cfg.n_experts else "mlp": {},
-    }
-    if cfg.post_norm:
-        layers["ln1_post"] = torch.zeros((L, d), dtype=torch.float32, device=device)
-        layers["ln2_post"] = torch.zeros((L, d), dtype=torch.float32, device=device)
-    for li in range(L):
-        blocks = {
-            "attn": init_attention(
-                gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, device
-            ),
-        }
-        if cfg.n_experts:
-            blocks["moe"] = moe_lib.init_moe(gen, d, cfg.d_ff, cfg.n_experts, device)
-        else:
-            blocks["mlp"] = init_swiglu(gen, d, cfg.d_ff, device)
-        for group, ws in blocks.items():
-            for name, w in ws.items():
-                if li == 0:
-                    layers[group][name] = torch.empty(
-                        (L,) + tuple(w.shape), device=device,
-                        dtype=dtype if name in _MATMUL else torch.float32,
-                    )
-                layers[group][name][li] = w
-        del blocks   # this layer's float32 draws, before the next layer's
-    params["layers"] = layers
+    if cfg.family in ATTENTION_FAMILIES:
+        key, lead = "layers", (cfg.n_layers,)
+
+        def layer():
+            p = {"ln1": init_rms_norm(d, device), "ln2": init_rms_norm(d, device),
+                 "attn": init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                        cfg.head_dim, device)}
+            if cfg.post_norm:
+                p["ln1_post"] = init_rms_norm(d, device)
+                p["ln2_post"] = init_rms_norm(d, device)
+            if cfg.n_experts:
+                p["moe"] = moe_lib.init_moe(gen, d, cfg.d_ff, cfg.n_experts, device)
+            else:
+                p["mlp"] = init_swiglu(gen, d, cfg.d_ff, device)
+            return p
+    elif cfg.family == "hybrid":
+        key, lead = "groups", (cfg.n_layers // cfg.attn_every, cfg.attn_every)
+
+        def layer():
+            return {"ln": init_rms_norm(d, device),
+                    "mamba": ssm_lib.init_mamba2(gen, d, cfg.d_inner, cfg.ssm_state,
+                                                 cfg.ssm_head_dim, device=device)}
+    elif cfg.family == "ssm":
+        key, lead = "layers", (cfg.n_layers,)
+
+        def layer():
+            return rwkv_lib.init_rwkv6(gen, d, cfg.d_ff, cfg.rwkv_head_dim, device=device)
+    else:
+        raise ValueError(cfg.family)
+    stack: Dict = {}
+    for idx in itertools.product(*map(range, lead)):
+        # one layer's float32 draws at a time
+        _stack_into(stack, idx, layer(), lead, device, dtype)
+    params[key] = stack
+    if cfg.family == "hybrid":
+        params["shared_attn"] = cast_matmul({
+            "ln": init_rms_norm(d, device),
+            "attn": init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                   device),
+        }, dtype)
     return params
 
 
@@ -150,8 +185,6 @@ def params_from_numpy(cfg: ArchConfig, tree, device="cuda",
                       dtype=torch.float32) -> dict:
     """The JAX parameter pytree (leaves moved through `np.asarray`) as the
     port's parameters: matmul weights in `dtype`, the rest float32."""
-    check_family(cfg)
-
     def conv(node, name=""):
         if isinstance(node, dict):
             return {k: conv(v, k) for k, v in node.items()}
@@ -161,14 +194,15 @@ def params_from_numpy(cfg: ArchConfig, tree, device="cuda",
     return conv(dict(tree))
 
 
-def layer_params(params: dict, li: int) -> dict:
-    """Views of layer `li` of the stacked layer parameters."""
+def layer_params(params: dict, index, key: str = "layers") -> dict:
+    """Views of one layer of stacked parameters: `index` an int into
+    `params["layers"]`, or a (group, layer) pair with `key="groups"`."""
     def pick(node):
         if isinstance(node, dict):
             return {k: pick(v) for k, v in node.items()}
-        return node[li]
+        return node[index]
 
-    return pick(params["layers"])
+    return pick(params[key])
 
 
 def window_array(cfg: ArchConfig) -> list:
@@ -215,16 +249,46 @@ def _dense_body(cfg: ArchConfig, carry, xs):
     return x + h, aux
 
 
+def _hybrid_body(cfg: ArchConfig, shared: dict, carry, gp):
+    """One training group: `attn_every` Mamba2 layers (`gp`'s leaves
+    [attn_every, ...]), then the shared attention block."""
+    x, aux = carry
+    gp = cast_matmul(gp, x.dtype)
+    shared = cast_matmul(shared, x.dtype)
+    for lp in _unstack(gp, cfg.attn_every):
+        h = rms_norm(x, lp["ln"], cfg.norm_eps)
+        x = x + ssm_lib.apply_mamba2(lp["mamba"], h, **_mamba_kwargs(cfg))
+    h = rms_norm(x, shared["ln"], cfg.norm_eps)
+    h = attention_block(shared["attn"], h, window=None, **_attn_kwargs(cfg))
+    return x + h, aux
+
+
+def _ssm_body(cfg: ArchConfig, carry, lp):
+    x, aux = carry
+    x, _ = rwkv_lib.apply_rwkv6(cast_matmul(lp, x.dtype), x, head_dim=cfg.rwkv_head_dim)
+    return x, aux
+
+
 def forward(cfg: ArchConfig, params: dict, x: torch.Tensor, *, remat: bool = False):
     """x: [B, S, d] embedded inputs -> (hidden [B, S, d], aux loss)."""
-    check_family(cfg)
+    if cfg.family in ATTENTION_FAMILIES:
+        body = functools.partial(_dense_body, cfg)
+        steps = zip(_unstack(params["layers"], cfg.n_layers), window_array(cfg))
+    elif cfg.family == "hybrid":
+        body = functools.partial(_hybrid_body, cfg, params["shared_attn"])
+        steps = _unstack(params["groups"], cfg.n_layers // cfg.attn_every)
+    elif cfg.family == "ssm":
+        body = functools.partial(_ssm_body, cfg)
+        steps = _unstack(params["layers"], cfg.n_layers)
+    else:
+        raise ValueError(cfg.family)
     carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
-    for lp, window in zip(_unstack(params["layers"], cfg.n_layers), window_array(cfg)):
+    for xs in steps:
         if remat:
-            carry = checkpoint(_dense_body, cfg, carry, (lp, window),
-                               use_reentrant=False, preserve_rng_state=False)
+            carry = checkpoint(body, carry, xs, use_reentrant=False,
+                               preserve_rng_state=False)
         else:
-            carry = _dense_body(cfg, carry, (lp, window))
+            carry = body(carry, xs)
     x, aux = carry
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -241,12 +305,32 @@ def train_loss(cfg: ArchConfig, params: dict, batch: dict, *, dtype=torch.bfloat
     """Mean token cross-entropy (z-loss 1e-4) plus 0.01 x the MoE aux
     loss; `batch` holds "labels" [B, S] and "tokens" [B, S] or, for the
     stub frontends, "embeds" [B, S, d]."""
-    check_family(cfg)
     x = _embed_inputs(cfg, params, batch, dtype)
     h, aux = forward(cfg, params, x, remat=remat)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     lg = lm_logits(h, table, cfg.final_softcap or None)
     return cross_entropy(lg, batch["labels"]) + 0.01 * aux
+
+
+def _attention_prefill(cfg: ArchConfig, ap: dict, h: torch.Tensor,
+                       positions: torch.Tensor, window):
+    """One attention site over the prompt: h [B, S, d] -> (out [B, S, d],
+    k, v [B, S, Hkv, D] for the cache)."""
+    B, S, _ = h.shape
+    q = (h @ ap["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = (h @ ap["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = (h @ ap["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = chunked_attention(q, k, v, causal=True, window=window,
+                          softcap=cfg.attn_softcap or None)
+    return o.reshape(B, S, -1) @ ap["wo"], k, v
+
+
+def _write(slots: dict, new: dict) -> None:
+    """Copy a layer's new state into its cache slots, in place."""
+    for k, a in slots.items():
+        a.copy_(new[k])
 
 
 def prefill(
@@ -258,34 +342,51 @@ def prefill(
     dtype=torch.bfloat16,
 ):
     """Process the prompt; returns (last-token logits [B, V] float32,
-    cache {"k", "v": [L, B, max_len, Hkv, D] in `dtype`, "pos": S}).  The
-    stub frontends take `batch["embeds"]` [B, S, d] where it is given."""
-    check_family(cfg)
+    the `init_cache` tree filled: K/V in `dtype` up to S, the hybrid's
+    Mamba2 states and the RWKV states exact at the last token, "pos": S).
+    The stub frontends take `batch["embeds"]` [B, S, d] where it is given."""
     x = _embed_inputs(cfg, params, batch, dtype)
     B, S = x.shape[:2]
     dev = x.device
     positions = torch.arange(S, device=dev)[None, :]
     cache = init_cache(cfg, B, max_len, dtype, dev)
-    softcap = cfg.attn_softcap or None
-    for li, window in enumerate(window_array(cfg)):
-        lp = layer_params(params, li)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q = (h @ lp["attn"]["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-        k = (h @ lp["attn"]["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-        v = (h @ lp["attn"]["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        o = chunked_attention(q, k, v, causal=True, window=window, softcap=softcap)
-        h = o.reshape(B, S, -1) @ lp["attn"]["wo"]
-        if cfg.post_norm:
-            h = rms_norm(h, lp["ln1_post"], cfg.norm_eps)
-        x = x + h
-        h = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.dispatch_mode)
-        if cfg.post_norm:
-            h = rms_norm(h, lp["ln2_post"], cfg.norm_eps)
-        x = x + h
-        cache["k"][li, :, :S] = k
-        cache["v"][li, :, :S] = v
+    if cfg.family in ATTENTION_FAMILIES:
+        for li, window in enumerate(window_array(cfg)):
+            lp = layer_params(params, li)
+            h, k, v = _attention_prefill(cfg, lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                         positions, window)
+            if cfg.post_norm:
+                h = rms_norm(h, lp["ln1_post"], cfg.norm_eps)
+            x = x + h
+            h = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.dispatch_mode)
+            if cfg.post_norm:
+                h = rms_norm(h, lp["ln2_post"], cfg.norm_eps)
+            x = x + h
+            cache["k"][li, :, :S] = k
+            cache["v"][li, :, :S] = v
+    elif cfg.family == "hybrid":
+        shared = params["shared_attn"]
+        for g in range(cfg.n_layers // cfg.attn_every):
+            # Mamba2 layers: chunked forward, exact final state captured
+            for i in range(cfg.attn_every):
+                lp = layer_params(params, (g, i), "groups")
+                h, st = ssm_lib.apply_mamba2(lp["mamba"], rms_norm(x, lp["ln"], cfg.norm_eps),
+                                             return_state=True, **_mamba_kwargs(cfg))
+                x = x + h
+                _write({k: a[g, i] for k, a in cache["mamba"].items()}, st)
+            h, k, v = _attention_prefill(cfg, shared["attn"],
+                                         rms_norm(x, shared["ln"], cfg.norm_eps), positions,
+                                         None)
+            x = x + h
+            cache["k"][g, :, :S] = k
+            cache["v"][g, :, :S] = v
+    elif cfg.family == "ssm":
+        for li in range(cfg.n_layers):
+            x, st = rwkv_lib.apply_rwkv6(layer_params(params, li), x,
+                                         head_dim=cfg.rwkv_head_dim)
+            _write({k: a[li] for k, a in cache["rwkv"].items()}, st)
+    else:
+        raise ValueError(cfg.family)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     lg = lm_logits(h[:, -1], table, cfg.final_softcap or None)
@@ -294,38 +395,82 @@ def prefill(
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda") -> dict:
-    """Dense decode cache {"k", "v": [L, batch, max_len, Hkv, D] zeros,
-    "pos": 0}; "pos" (a Python int) is the current context length."""
-    check_family(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "pos": 0,
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }
+    """Dense decode cache, zeros; "pos" (a Python int) is the current
+    context length.  Attention families: "k", "v" [L, batch, max_len, Hkv,
+    D] in `dtype`.  Hybrid: "k", "v" with one site per group [G, ...] and
+    "mamba" {"ssm" [G, attn_every, batch, H, N, P] float32, "conv" [G,
+    attn_every, batch, d_conv - 1, conv_dim] in `dtype`}.  Ssm: "rwkv"
+    {"tm_x", "cm_x" [L, batch, d], "wkv" [L, batch, H, P, P]}, float32.
+    Every site has its own memory (JAX broadcasts one zero state; the
+    port writes states in place)."""
+    def kv(sites):
+        shape = (sites, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def stacked(lead, state):
+        return {k: a.new_zeros(lead + tuple(a.shape)) for k, a in state.items()}
+
+    cache: Dict = {"pos": 0}
+    if cfg.family in ATTENTION_FAMILIES:
+        cache["k"], cache["v"] = kv(cfg.n_layers), kv(cfg.n_layers)
+    elif cfg.family == "hybrid":
+        G = cfg.n_layers // cfg.attn_every
+        cache["k"], cache["v"] = kv(G), kv(G)
+        cache["mamba"] = stacked((G, cfg.attn_every), ssm_lib.init_mamba2_state(
+            batch, cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim, dtype=dtype,
+            device=device))
+    elif cfg.family == "ssm":
+        cache["rwkv"] = stacked((cfg.n_layers,), rwkv_lib.init_rwkv6_state(
+            batch, cfg.d_model, cfg.rwkv_head_dim, device=device))
+    else:
+        raise ValueError(cfg.family)
+    return cache
 
 
 def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor, *,
                 dtype=torch.bfloat16):
     """One decode step over the dense cache.  tokens: [B] -> (logits [B, V]
-    float32, cache with "pos" + 1).  The new token's K/V is written into
-    `cache["k"]` / `cache["v"]` in place (the torch form of the JAX scan's
-    carried cache).  MoE layers take the scatter dispatch always."""
-    check_family(cfg)
+    float32, cache with "pos" + 1).  The new token's K/V and every layer's
+    new Mamba2 / RWKV state are written into the cache in place (the torch
+    form of the JAX scan's carried cache).  MoE layers take the scatter
+    dispatch always."""
     pos = cache["pos"]
     x = embed(params["embed"], tokens[:, None], dtype, scale=cfg.embed_scale)
-    for li, window in enumerate(window_array(cfg)):
-        lp = layer_params(params, li)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        h = attention_decode_stacked(lp["attn"], h, cache["k"], cache["v"], li, pos,
-                                     window=window, **_attn_kwargs(cfg))
-        if cfg.post_norm:
-            h = rms_norm(h, lp["ln1_post"], cfg.norm_eps)
-        x = x + h
-        h = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), "scatter")
-        if cfg.post_norm:
-            h = rms_norm(h, lp["ln2_post"], cfg.norm_eps)
-        x = x + h
+    if cfg.family in ATTENTION_FAMILIES:
+        for li, window in enumerate(window_array(cfg)):
+            lp = layer_params(params, li)
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            h = attention_decode_stacked(lp["attn"], h, cache["k"], cache["v"], li, pos,
+                                         window=window, **_attn_kwargs(cfg))
+            if cfg.post_norm:
+                h = rms_norm(h, lp["ln1_post"], cfg.norm_eps)
+            x = x + h
+            h = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), "scatter")
+            if cfg.post_norm:
+                h = rms_norm(h, lp["ln2_post"], cfg.norm_eps)
+            x = x + h
+    elif cfg.family == "hybrid":
+        shared = params["shared_attn"]
+        for g in range(cfg.n_layers // cfg.attn_every):
+            for i in range(cfg.attn_every):
+                lp = layer_params(params, (g, i), "groups")
+                slots = {k: a[g, i] for k, a in cache["mamba"].items()}
+                h, st = ssm_lib.apply_mamba2_decode(
+                    lp["mamba"], rms_norm(x, lp["ln"], cfg.norm_eps), slots,
+                    **_mamba_kwargs(cfg))
+                x = x + h
+                _write(slots, st)
+            h = rms_norm(x, shared["ln"], cfg.norm_eps)
+            x = x + attention_decode_stacked(shared["attn"], h, cache["k"], cache["v"], g,
+                                             pos, window=None, **_attn_kwargs(cfg))
+    elif cfg.family == "ssm":
+        for li in range(cfg.n_layers):
+            slots = {k: a[li] for k, a in cache["rwkv"].items()}
+            x, st = rwkv_lib.apply_rwkv6(layer_params(params, li), x,
+                                         head_dim=cfg.rwkv_head_dim, state=slots)
+            _write(slots, st)
+    else:
+        raise ValueError(cfg.family)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     lg = lm_logits(h[:, 0], table, cfg.final_softcap or None)

@@ -1,7 +1,8 @@
 """Paged decode step: the full-model consumer of the NBBS page pool.
 
 Counterpart of `repro/serve/paged_decode.py`, for the attention
-families (dense, moe, vlm, audio).  The KV cache lives in a global page
+families (dense, moe, vlm, audio); it refuses the hybrid and ssm
+families, as JAX's step does.  The KV cache lives in a global page
 pool [L, P+1, page, Hkv, D] addressed through per-sequence block tables.  Each step computes this token's K/V
 per layer, writes them into the page/slot the table gives, and attends
 over the pages with `kernels.ops.paged_attention`.
@@ -31,7 +32,7 @@ from repro_torch.models.layers import (
     rms_norm,
 )
 from repro_torch.models.transformer import (
-    check_family,
+    ATTENTION_FAMILIES,
     layer_params,
     prefill,
     window_array,
@@ -70,7 +71,9 @@ def paged_decode_step(
     """Returns logits [B, V] (float32); `pool` is updated in place.  MoE
     layers run drop-free (capacity factor n_experts) with the scatter
     dispatch in one block, as JAX's paged step calls them."""
-    check_family(cfg)
+    if cfg.family not in ATTENTION_FAMILIES:
+        raise ValueError("paged decode covers attention families; SSM/hybrid use "
+                         "fixed-size state slots (see docs/design.md §5)")
     B = tokens.shape[0]
     P = pool["k"].shape[1] - 1          # the last page is the sink
     MP = block_tables.shape[1]

@@ -1,7 +1,7 @@
 """Training step + driver loop.
 
 Counterpart of `repro/train/trainer.py`.  `make_train_step` builds the
-step for any config of the attention families: gradient accumulation
+step for any config of the six families: gradient accumulation
 over microbatches (the float32 gradient sum over them, then divided by
 their count, as JAX's scan does), per-layer remat
 (`torch.utils.checkpoint` inside the model's loop), optional
@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import to_device
-from repro_torch.models.transformer import check_family, init_params, train_loss
+from repro_torch.models.transformer import init_params, train_loss
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import ef_roundtrip, init_error_buf
 from repro_torch.tree_util import block_until_ready, leaves, tree_map
@@ -74,7 +74,6 @@ def make_train_step(
     """Returns step(state, batch) -> (state, metrics).  `batch` holds
     numpy arrays or tensors, moved to the parameters' device; the state's
     tensors are updated in place and returned."""
-    check_family(cfg)
     if axes is not None or tcfg.constrain_grads:
         raise NotImplementedError("sharded training (axes, constrain_grads) comes "
                                   "with the distribution slice")

@@ -9,7 +9,8 @@ stablelm-3b and gemma2-27b, whose windows and softcaps bite at S=16)
 then agree with JAX within 1e-4 (the sums run in another order).  The
 twin of tests/test_models.py::test_serve_consistency holds the port's
 `prefill(S+1)` against `prefill(S)` + `decode_step` on its own
-parameters; the families the port lacks (hybrid, ssm) are refused.
+parameters (tests/test_torch_hybrid_ssm_model.py has the hybrid and ssm
+families).
 """
 
 import functools
@@ -180,15 +181,3 @@ def test_serve_consistency(name):
                        dtype=torch.float32)
     lg_dec, _ = decode_step(cfg, params, cache, toks[:, S], dtype=torch.float32)
     np.testing.assert_allclose(lg_full.numpy(), lg_dec.numpy(), atol=1e-4)
-
-
-@pytest.mark.parametrize("name", ["zamba2-1.2b", "rwkv6-7b"])
-def test_missing_families_refused(name):
-    cfg = get_config(name).reduced()
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    for call in (lambda: init_params(cfg, torch.Generator(), device="cpu"),
-                 lambda: init_cache(cfg, 1, 8, torch.float32, "cpu"),
-                 lambda: prefill(cfg, {}, {"tokens": toks}, 8),
-                 lambda: decode_step(cfg, {}, {"pos": 0}, toks[:, 0])):
-        with pytest.raises(NotImplementedError, match=f"the {cfg.family} family comes"):
-            call()

@@ -175,13 +175,25 @@ def test_train_loss_and_grads_match_jax(name, remat):
 def test_cast_params_once_rule():
     """JAX's rule casts every float32 leaf with ndim >= 2: the stacked
     norm scales, the router, the embedding and LM head too; only
-    `final_norm` stays float32."""
+    `final_norm` stays float32.  The hybrid's and ssm's stacked per-head
+    leaves count too (`A_log`, `D`, `dt_bias`, `conv_b`, the Mamba2
+    norm; RWKV's mixes, `w0`, `u`, `ln_scale`); zamba2's shared block's
+    norm [d] is not stacked and stays float32."""
     _, cfg, _, tree = _model("phi3.5-moe-42b-a6.6b")
     cast = _port_cast(params_from_numpy(cfg, tree, "cpu"))
     kept = sorted(k for k, p in _paths(cast) if p.dtype == torch.float32)
     assert kept == ["/final_norm"]
     assert cast["layers"]["ln1"].dtype == cast["layers"]["moe"]["router"].dtype \
         == cast["embed"].dtype == torch.bfloat16
+    for name, want_kept, stacked in (
+            ("zamba2-1.2b", ["/final_norm", "/shared_attn/ln"],
+             ("A_log", "D", "dt_bias", "conv_b", "norm")),
+            ("rwkv6-7b", ["/final_norm"], ("mu_r", "w0", "u", "ln_scale", "cm_mu_k"))):
+        _, cfg, _, tree = _model(name)
+        cast = _port_cast(params_from_numpy(cfg, tree, "cpu"))
+        assert sorted(k for k, p in _paths(cast) if p.dtype == torch.float32) == want_kept
+        layers = cast["groups"]["mamba"] if "groups" in cast else cast["layers"]
+        assert all(layers[k].dtype == torch.bfloat16 for k in stacked), name
 
 
 def test_cross_entropy_and_gelu_mlp_match_jax():

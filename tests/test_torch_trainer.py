@@ -13,8 +13,11 @@
 - twins of tests/test_substrates.py's TestTrainerLoop and of
   tests/test_system.py's train CLI test (a subprocess of
   `python -m repro_torch.launch.train --device cpu`);
-- `Trainer` with checkpoints; the refusals of zamba2 and rwkv6, and of
-  the sharded options, at the training entry points.
+- `Trainer` with checkpoints; the refusal of the sharded options;
+- the hybrid and ssm families (zamba2-1.2b, rwkv6-7b reduced): three
+  steps beside JAX's jitted step (loss within 1e-5 relative, parameters
+  within 1e-3 of each leaf's largest element), each family's train
+  state restored across packages, and the launcher on zamba2.
 """
 
 import json
@@ -29,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.ckpt.checkpoint import CheckpointManager as JCheckpointManager
 from repro.configs import get_config as jget_config
 from repro.data.pipeline import SyntheticLM as JSyntheticLM
 from repro.optim.adamw import AdamWConfig as JAdamWConfig
@@ -38,7 +42,6 @@ from repro.train.trainer import make_train_step as jmake_train_step
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import SyntheticLM
-from repro_torch.models.transformer import train_loss
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.trainer import (
     TrainConfig,
@@ -139,16 +142,75 @@ def test_train_cli_loss_decreases_with_failure_recovery():
         assert any(n.startswith("step_") for n in os.listdir(d))
 
 
+def _state_from_jax(cfg, tcfg, jstate):
+    _, treedef = flatten(init_train_state(cfg, tcfg, torch.Generator(), "cpu"))
+    return treedef.unflatten([torch.from_numpy(np.array(x))
+                              for x in jax.tree_util.tree_leaves(jstate)])
+
+
 @pytest.mark.parametrize("name", ["zamba2-1.2b", "rwkv6-7b"])
-def test_missing_families_refused(name):
-    cfg = get_config(name).reduced()
-    tcfg = TrainConfig(dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_train_step(cfg, tcfg)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        init_train_state(cfg, tcfg, torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        train_loss(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+def test_hybrid_ssm_train_steps_track_jax(name):
+    """Three steps of each family beside JAX's jitted step (fp32, remat,
+    2 microbatches), held as test_train_steps_track_jax holds them.  The
+    stacked per-head leaves (`A_log`, the RWKV mixes, ...) are decayed,
+    as JAX's `adamw.update` decays every leaf with ndim >= 2."""
+    jcfg, cfg = jget_config(name).reduced(), get_config(name).reduced()
+    jtcfg = JTrainConfig(microbatches=2, dtype=jnp.float32, optimizer=JAdamWConfig(**OPT))
+    tcfg = TrainConfig(microbatches=2, dtype=torch.float32, optimizer=AdamWConfig(**OPT))
+    jstate = jinit_train_state(jcfg, jtcfg, jax.random.PRNGKey(0))
+    state = _state_from_jax(cfg, tcfg, jstate)
+    jstep = jax.jit(jmake_train_step(jcfg, jtcfg))
+    step = make_train_step(cfg, tcfg)
+    data = JSyntheticLM(cfg.vocab_size, 16, 4, seed=0)
+    for i in range(3):
+        batch = data.batch_at(i)
+        jstate, jm = jstep(jstate, batch)
+        state, m = step(state, batch)
+        assert abs(float(m["loss"]) - float(jm["loss"])) <= 1e-5 * abs(float(jm["loss"]))
+    assert int(state.opt.step) == int(jstate.opt.step) == 3
+    for mine, theirs in zip(leaves(state.params), jax.tree_util.tree_leaves(jstate.params)):
+        theirs = np.asarray(theirs)
+        err = np.abs(mine.detach().numpy() - theirs).max()
+        assert err <= 1e-3 * np.abs(theirs).max()
+
+
+@pytest.mark.parametrize("name", ["zamba2-1.2b", "rwkv6-7b"])
+def test_hybrid_ssm_checkpoint_restores_across_packages(name):
+    """Each family's train state: port -> JAX and JAX -> port, leaf for
+    leaf (the hybrid's [G, attn_every] stacks and the shared block)."""
+    jcfg, cfg = jget_config(name).reduced(), get_config(name).reduced()
+    tcfg, jtcfg = TrainConfig(dtype=torch.float32), JTrainConfig(dtype=jnp.float32)
+    state = init_train_state(cfg, tcfg, torch.Generator().manual_seed(0), "cpu")
+    state.opt.step.fill_(2)
+    jstate = jinit_train_state(jcfg, jtcfg, jax.random.PRNGKey(0))
+    mine, jleaves = leaves(state), jax.tree_util.tree_leaves(jstate)
+    assert [tuple(x.shape) for x in mine] == [x.shape for x in jleaves]
+    with tempfile.TemporaryDirectory() as d:
+        CheckpointManager(d, async_io=False).save(2, state)
+        back = JCheckpointManager(d, async_io=False).restore(2, like=jstate)
+        for a, b in zip(mine, jax.tree_util.tree_leaves(back)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    with tempfile.TemporaryDirectory() as d:
+        JCheckpointManager(d, async_io=False).save(3, jstate)
+        back = CheckpointManager(d).restore(3, like=state)
+        assert set(back.params) == set(state.params)
+        for a, b in zip(leaves(back), jleaves):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_train_cli_hybrid():
+    """The launcher trains zamba2-1.2b reduced on the CPU, as JAX's
+    launcher does (`--arch zamba2-1.2b`)."""
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "zamba2-1.2b",
+         "--reduced", "--device", "cpu", "--steps", "12", "--batch", "8", "--seq", "32",
+         "--lr", "3e-3"],
+        env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=240,
+    )
+    assert r.returncode == 0, f"stdout:\n{r.stdout}\nstderr:\n{r.stderr}"
+    stats = json.loads(r.stdout.strip().splitlines()[-1])
+    assert stats["steps"] == 12 and stats["last_loss"] < stats["first_loss"]
 
 
 def test_sharded_options_refused():
