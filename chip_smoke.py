@@ -178,7 +178,23 @@ Phases (any failure fails the run, exit code 1):
      over float32 masters, remat, 3 steps: zamba2 at full depth, 4 x 512,
      rwkv6 cut to 4 layers, 4 x 256, each in 2 microbatches: ms per
      step, tokens/s, peak memory, finite losses;
-  12. flash: with its launch count at 0, the differentiable
+  12. dist: the distribution layer (`models.sharding`, `launch.mesh`,
+     the sharded `make_train_step`, `compressed_psum`, `train.pp`) over
+     an in-process NCCL group of one rank (one card holds one NCCL
+     rank) with the mesh (1, 1) ("data", "model"), no kernel of the port
+     on its path: (a) fp32, stablelm-3b at full width cut to 2 layers,
+     B=2, S=128: the sharded `train_loss` and its gradients against the
+     unsharded ones from the same weights and batch (loss within 1e-6
+     relative, each gradient leaf within 1e-6 of its max; bit-equal
+     leaves counted); (b) stablelm-3b at full depth with phase train
+     (a)'s TrainConfig and batch, 3 steps unsharded and 3 sharded in
+     this phase: steady ms per step (CUDA events), tokens/s, peak
+     memory, beside phase train (a)'s step; (c) `compressed_psum` of a
+     64M-element fp32 gradient over NCCL, equal to
+     `decompress(*compress(g))`, timed beside a plain fp32 all_reduce;
+     (d) `pipeline_apply` with one stage against the sequential layers
+     within 1e-5;
+  13. flash: with its launch count at 0, the differentiable
      `ops.flash_attention` (kernel 5 forward) at full attention width in
      bf16, B=1: stablelm-3b (32/32 heads, D=80, S=4096, causal),
      phi3-medium-14b (40/10, D=128, S=4096, causal), gemma2-27b global
@@ -3338,7 +3354,281 @@ def phase_ssm(torch, dev, report):
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: flash attention (kernel 5) through ops.flash_attention
+# Phase 12: distributed training over NCCL, a world of one rank
+# ---------------------------------------------------------------------------
+
+# One card holds one NCCL rank, so the process group has one rank and the
+# mesh is (1, 1) ("data", "model"): DTensor runs the same local ops as the
+# unsharded path, and what differs is its dispatch on the host.
+# (a) fp32 at full width cut to `layers`: the sharded train_loss and its
+# gradients against the unsharded ones from the same weights and batch
+DIST_CHECK = dict(layers=2, batch=2, seq=128, loss_rel_tol=1e-6, leaf_tol=1e-6)
+# (b) full depth with phase train (a)'s TrainConfig and batch: `steps`
+# sharded steps and as many unsharded ones, the first of each a warm-up
+DIST_STEPS = 3
+# (c) compressed_psum of one fp32 gradient of `numel` elements, timed over
+# `reps` calls after one untimed
+DIST_PSUM = dict(numel=64 << 20, reps=5)
+# (d) pipeline_apply with one stage against the sequential layers
+DIST_PP = dict(layers=8, n_micro=4, mb=256, tol=1e-5)
+
+
+def dist_check(torch, dev, cfg, mesh, axes):
+    """(a): fp32 loss and gradients, sharded against unsharded."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticLM, place_on_mesh, to_device
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models.sharding import param_specs, shard_tree
+    from repro_torch.models.transformer import init_params, train_loss
+    from repro_torch.tree_util import leaves
+
+    c = DIST_CHECK
+    cfg = dataclasses.replace(cfg, n_layers=c["layers"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(4), device=dev,
+                         dtype=torch.float32)
+    batch = SyntheticLM(cfg.vocab_size, c["seq"], c["batch"], seed=5).batch_at(0)
+    sharded = shard_tree(params, param_specs(axes, params), mesh)
+
+    def value_and_grad(p, run):
+        flat = leaves(p)
+        for x in flat:
+            x.requires_grad_(True)
+        t0 = time.perf_counter()
+        loss = run(p)
+        loss.backward()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        grads = [x.grad.redistribute(x.device_mesh, x.placements).full_tensor()
+                 if hasattr(x.grad, "full_tensor") else x.grad for x in flat]
+        loss = loss.full_tensor() if hasattr(loss, "full_tensor") else loss
+        return float(loss.detach()), [g.detach() for g in grads], s
+
+    want_loss, want, plain_s = value_and_grad(params, lambda p: train_loss(
+        cfg, p, to_device(batch, dev), dtype=torch.float32))
+    with use_mesh(mesh):
+        loss, got, sharded_s = value_and_grad(sharded, lambda p: train_loss(
+            cfg, p, place_on_mesh(batch, mesh, axes.dp), axes=axes, dtype=torch.float32))
+    errs = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+    out = dict(n_layers=cfg.n_layers, batch=c["batch"], seq=c["seq"], loss=loss,
+               plain_loss=want_loss, loss_rel_err=abs(loss - want_loss) / abs(want_loss),
+               loss_bit_equal=loss == want_loss, grad_leaf_err=max(errs),
+               grad_leaves_bit_equal=sum(bool(torch.equal(g, w)) for g, w in zip(got, want)),
+               grad_leaves=len(want), plain_s=plain_s, sharded_s=sharded_s)
+    log(f"[dist] (a) fp32, {cfg.n_layers} layers at full width, batch {c['batch']} x "
+        f"{c['seq']}, mesh (1, 1): sharded loss {loss:.8f} / unsharded {want_loss:.8f} "
+        f"(rel {out['loss_rel_err']:.2e}, limit {c['loss_rel_tol']:g}), worst gradient leaf "
+        f"{out['grad_leaf_err']:.2e} of its max (limit {c['leaf_tol']:g}); bit-equal "
+        f"{out['grad_leaves_bit_equal']} of {len(want)} gradient leaves, loss "
+        f"{out['loss_bit_equal']}; forward + backward {sharded_s:.2f} s sharded, "
+        f"{plain_s:.2f} s unsharded (the first calls)")
+    if out["loss_rel_err"] > c["loss_rel_tol"] or out["grad_leaf_err"] > c["leaf_tol"]:
+        raise AssertionError(f"dist (a): {out}")
+    return out
+
+
+def dist_steps(torch, dev, cfg, mesh, axes, report):
+    """(b): phase train (a)'s step at full depth, unsharded and sharded on
+    the (1, 1) mesh, in this run: ms per step (CUDA events), tokens/s,
+    peak memory, losses."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.launch.train import train_fns
+    from repro_torch.models.sharding import param_specs, shard_tree
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import TrainConfig, TrainState, make_train_step
+
+    r = TRAIN_RUN
+    tcfg = TrainConfig(microbatches=r["microbatches"], remat=True, dtype=torch.bfloat16,
+                       optimizer=adamw.AdamWConfig(peak_lr=r["peak_lr"],
+                                                   warmup_steps=r["warmup_steps"],
+                                                   total_steps=r["steps"]))
+    tokens = r["batch"] * r["seq"]
+
+    def run(state, step_fn):
+        torch.cuda.reset_peak_memory_stats(dev)
+        rows = []
+        for i in range(DIST_STEPS):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            t0 = time.perf_counter()
+            ev[0].record()
+            state, m = step_fn(state, i)
+            ev[1].record()
+            rows.append((ev, m, time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        step_ms = [ev[0].elapsed_time(ev[1]) for ev, _, _ in rows]
+        ms = sum(step_ms[1:]) / len(step_ms[1:])
+        losses = [float(m["loss"]) for _, m, _ in rows]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"dist (b): losses {losses}")
+        return dict(step_ms=step_ms, host_s=[h for _, _, h in rows], ms_per_step=ms,
+                    tokens_per_s=tokens / (ms / 1e3), losses=losses,
+                    peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+    make_state, step_fn = train_fns(cfg, tcfg, batch=r["batch"], seq=r["seq"], seed=0,
+                                    device=dev)
+    plain = run(make_state(), step_fn)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                         dtype=torch.float32)
+    params = shard_tree(params, param_specs(axes, params), mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = TrainState(params, adamw.init(params), {})
+    del params
+    data = SyntheticLM(cfg.vocab_size, r["seq"], r["batch"], seed=0)
+    sharded_step = make_train_step(cfg, tcfg, axes)
+    with use_mesh(mesh):
+        sharded = run(state, lambda st, i: sharded_step(st, data.batch_at(i)))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_ms = report.get("train", {}).get("full", {}).get("ms_per_step")
+    out = dict(n_layers=cfg.n_layers, batch=r["batch"], seq=r["seq"],
+               microbatches=r["microbatches"], steps=DIST_STEPS, sharded=sharded,
+               unsharded=plain, phase_train_ms_per_step=train_ms,
+               dispatch_ms_per_step=sharded["ms_per_step"] - plain["ms_per_step"],
+               loss_rel_diff=[abs(a - b) / abs(b) for a, b in
+                              zip(sharded["losses"], plain["losses"])])
+    log(f"[dist] (b) {cfg.name} full depth ({cfg.n_layers} layers), bf16 over float32 "
+        f"masters, remat, {r['batch']} x {r['seq']} in {r['microbatches']} microbatches, "
+        f"{DIST_STEPS} steps each, the first a warm-up: sharded on (1, 1) "
+        f"{[round(t, 3) for t in sharded['step_ms']]} ms, steady "
+        f"{sharded['ms_per_step']:.3f} ms ({sharded['tokens_per_s']:.1f} tokens/s, peak "
+        f"{sharded['peak_memory_gb']:.2f} GB); unsharded in this phase "
+        f"{[round(t, 3) for t in plain['step_ms']]} ms, steady {plain['ms_per_step']:.3f} ms "
+        f"({plain['tokens_per_s']:.1f} tokens/s, peak {plain['peak_memory_gb']:.2f} GB); "
+        f"phase train (a)'s steady step {train_ms} ms")
+    log(f"[dist]     host seconds per call: sharded {[round(h, 3) for h in sharded['host_s']]}"
+        f", unsharded {[round(h, 3) for h in plain['host_s']]}; losses sharded "
+        f"{[round(v, 5) for v in sharded['losses']]}, unsharded "
+        f"{[round(v, 5) for v in plain['losses']]}")
+    return out
+
+
+def dist_psum(torch, dev, mesh):
+    """(c): compressed_psum over the NCCL group of mesh axis "data"."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.optim.compression import compress, compressed_psum, decompress
+
+    c = DIST_PSUM
+    g = torch.randn(c["numel"], generator=torch.Generator(device=dev).manual_seed(6),
+                    device=dev)
+
+    def timed(fn):
+        fn()
+        evs = []
+        for _ in range(c["reps"]):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            fn()
+            ev[1].record()
+            evs.append(ev)
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in evs]
+
+    with use_mesh(mesh):
+        out = compressed_psum(g, "data")
+        psum_ms = timed(lambda: compressed_psum(g, "data"))
+    want = decompress(*compress(g), g.shape)
+    equal = bool(torch.equal(out, want))
+    local_ms = timed(lambda: decompress(*compress(g), g.shape))
+    flat = g.clone()
+    group = mesh.get_group("data")
+    allreduce_ms = timed(lambda: dist.all_reduce(flat, group=group))
+    row = dict(numel=c["numel"], equal=equal, ms=sum(psum_ms) / len(psum_ms),
+               ms_each=psum_ms, roundtrip_ms=sum(local_ms) / len(local_ms),
+               fp32_all_reduce_ms=sum(allreduce_ms) / len(allreduce_ms),
+               max_abs_err=float((out - want).abs().max()))
+    log(f"[dist] (c) compressed_psum of {c['numel']} fp32 elements over NCCL (one rank): "
+        f"equal to decompress(*compress(g)) {equal}; {row['ms']:.3f} ms (each "
+        f"{[round(t, 3) for t in psum_ms]}), the local compress + decompress "
+        f"{row['roundtrip_ms']:.3f} ms, a plain fp32 all_reduce {row['fp32_all_reduce_ms']:.3f}"
+        f" ms")
+    if not equal:
+        raise AssertionError(f"dist (c): {row}")
+    return row
+
+
+def dist_pipeline(torch, dev, cfg):
+    """(d): pipeline_apply on a one-stage 'pipe' mesh against the
+    sequential layers, tanh(x @ w) at the model's width."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train.pp import pipeline_apply
+
+    c = DIST_PP
+    d = cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(7)
+    w = torch.randn(c["layers"], d, d, generator=gen, device=dev) * d ** -0.5
+    x = torch.randn(c["n_micro"], c["mb"], d, generator=gen, device=dev)
+    body = lambda lw, h: torch.tanh(h @ lw)  # noqa: E731
+    y = pipeline_apply(body, w, x, make_test_mesh((1,), ("pipe",)))
+    ref = x
+    for layer in range(c["layers"]):
+        ref = body(w[layer], ref)
+    err = float((y - ref).abs().max())
+    row = dict(layers=c["layers"], n_micro=c["n_micro"], mb=c["mb"], d=d, max_abs_err=err,
+               tol=c["tol"])
+    log(f"[dist] (d) pipeline_apply, one stage, {c['layers']} layers of tanh(x @ w) at d "
+        f"{d}, {c['n_micro']} microbatches of {c['mb']}: max |diff| against the "
+        f"sequential layers {err:.3e} (limit {c['tol']:g})")
+    if not err <= c["tol"]:
+        raise AssertionError(f"dist (d): {row}")
+    return row
+
+
+def phase_dist(torch, dev, report):
+    """The distribution layer over NCCL on the card, no kernel of the port
+    on its path: (a) fp32 sharded loss and gradients against unsharded,
+    (b) full-depth sharded training beside the unsharded step, (c) the
+    compressed all-reduce, (d) the pipeline with one stage."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.sharding import MeshAxes
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        axes = MeshAxes()
+        cfg = get_config(TRAIN_ARCH)
+        out = report["dist"] = {"card": report.get("card"), "backend": dist.get_backend(),
+                                "world_size": dist.get_world_size(),
+                                "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+        log(f"[dist] {report.get('card')}; backend {out['backend']}, world "
+            f"{out['world_size']}, mesh {out['mesh']}")
+        out["check"] = dist_check(torch, dev, cfg, mesh, axes)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["steps"] = dist_steps(torch, dev, cfg, mesh, axes, report)
+        out["psum"] = dist_psum(torch, dev, mesh)
+        out["pipeline"] = dist_pipeline(torch, dev, cfg)
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: flash attention (kernel 5) through ops.flash_attention
 # ---------------------------------------------------------------------------
 
 FLASH_S = 4096         # stablelm-3b and phi3-medium rows
@@ -3574,6 +3864,7 @@ def main(argv) -> int:
         ("fp32", lambda: phase_fp32(torch, dev, report)),
         ("train", lambda: phase_train(torch, dev, report)),
         ("ssm", lambda: phase_ssm(torch, dev, report)),
+        ("dist", lambda: phase_dist(torch, dev, report)),
         ("flash", lambda: phase_flash(torch, dev, report, state)),
     ]
     for pname, fn in phases:

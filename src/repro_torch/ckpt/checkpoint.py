@@ -22,6 +22,16 @@ bytes as they are written, and a restore reads each file once.  numpy
 has no bfloat16: a bfloat16 leaf is refused, not widened.  `restore`
 places each leaf on the device of the matching leaf of `like`, in the
 dtype the file holds.
+
+Sharded trees and elastic restore: a DTensor leaf is saved as its
+global array (`full_tensor()`, a collective: every rank gathers the
+leaves in the same order, on the calling thread, and only rank 0
+writes; the writer thread runs no collective).  `restore(...,
+shardings=...)` places each leaf by a matching tree of
+`models.sharding.NamedSharding` (a mesh and a spec), so restarting on
+another mesh is the same code path as a same-mesh restart.  With more
+than one rank, `latest_step` waits at a barrier first, so that every
+rank sees the checkpoints rank 0 has finished.
 """
 
 from __future__ import annotations
@@ -38,7 +48,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch.models.sharding import placements
 from repro_torch.tree_util import flatten
 
 IO_THREADS = 4
@@ -49,6 +62,8 @@ def _to_host(x) -> np.ndarray:
         if x.dtype == torch.bfloat16:
             raise TypeError("a bfloat16 leaf cannot be checkpointed: numpy has no "
                             "bfloat16 (keep the train state's leaves in float32)")
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
         # a copy even of a CPU tensor: the trainer updates it in place
         return x.detach().to("cpu", copy=True).numpy()
     return np.array(x)
@@ -71,6 +86,10 @@ def _write_leaf(path: str, leaf: np.ndarray) -> int:
         w = _CrcWriter(f)
         np.lib.format.write_array(w, leaf)
     return w.crc
+
+
+def _multi_rank() -> bool:
+    return dist.is_initialized() and dist.get_world_size() > 1
 
 
 def _read_leaf(path: str, crc32: Optional[int]) -> np.ndarray:
@@ -102,6 +121,8 @@ class CheckpointManager:
         self.wait()  # one in flight at a time
         leaves, treedef = flatten(tree)
         host_leaves = [_to_host(x) for x in leaves]
+        if _multi_rank() and dist.get_rank() != 0:
+            return
         if self._pool is not None:
             self._pending = self._pool.submit(
                 self._write, step, host_leaves, str(treedef)
@@ -161,12 +182,18 @@ class CheckpointManager:
         return sorted(out)
 
     def latest_step(self) -> Optional[int]:
+        if _multi_rank():
+            self.wait()
+            dist.barrier()
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any, verify: bool = True) -> Any:
+    def restore(self, step: int, like: Any, verify: bool = True,
+                shardings: Any = None) -> Any:
         """Restore into the structure of `like`: each leaf a tensor on the
-        device of `like`'s leaf (the CPU where that leaf is no tensor)."""
+        device of `like`'s leaf (the CPU where that leaf is no tensor), or,
+        with `shardings` (a tree like `like` of `NamedSharding`s: the NEW
+        mesh's for an elastic restore), a DTensor placed by its sharding."""
         self.wait()
         d = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
@@ -176,14 +203,20 @@ class CheckpointManager:
             raise ValueError(f"{d} holds {len(manifest['leaves'])} leaves, the "
                              f"tree to restore {len(like_leaves)}")
         metas = manifest["leaves"]
+        shard_leaves = ([None] * len(metas) if shardings is None else
+                        flatten(shardings)[0])
         with concurrent.futures.ThreadPoolExecutor(IO_THREADS) as pool:
             arrays = pool.map(_read_leaf, [os.path.join(d, m["file"]) for m in metas],
                               [m["crc32"] if verify else None for m in metas])
             out = []
-            for meta, lk, arr in zip(metas, like_leaves, arrays):
+            for meta, lk, arr, sh in zip(metas, like_leaves, arrays, shard_leaves):
                 if list(arr.shape) != meta["shape"]:
                     raise IOError(f"{meta['file']} in {d} has shape {arr.shape}, its "
                                   f"manifest {meta['shape']}")
+                if sh is not None:
+                    t = torch.from_numpy(arr).to(sh.mesh.device_type)
+                    out.append(distribute_tensor(t, sh.mesh, placements(sh.spec, sh.mesh)))
+                    continue
                 dev = lk.device if isinstance(lk, torch.Tensor) else "cpu"
                 out.append(torch.from_numpy(arr).to(dev))
         return treedef.unflatten(out)

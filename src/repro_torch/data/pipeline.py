@@ -3,8 +3,8 @@
 Counterpart of `repro/data/pipeline.py`: the same stateless, seekable
 token stream (numpy only, so a batch equals the JAX package's element
 for element), per-host slicing of the global batch, and background
-prefetch.  `to_device` takes the place of `place_on_mesh`, which comes
-with the distribution slice.
+prefetch.  `to_device` moves a batch to one device and `place_on_mesh`
+shards it over a mesh's dp axes (DTensors).
 
 Tokens are an order-2 Markov-ish stream derived from a splitmix-style
 integer hash, so the tiny-LM example has actual learnable structure
@@ -20,6 +20,9 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
+
+from repro_torch.models.sharding import P, placements
 
 
 def _splitmix(x: np.ndarray) -> np.ndarray:
@@ -113,3 +116,16 @@ class Prefetcher:
 def to_device(batch: dict, device) -> dict:
     """A host batch (numpy arrays or tensors) as tensors on `device`."""
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def place_on_mesh(batch: dict, mesh, dp_axes) -> dict:
+    """A host batch (the global batch, the same on every rank) as
+    DTensors on `mesh`: the leading dim sharded over the dp axes,
+    replicated over the rest."""
+    spec = lambda nd: P(dp_axes if len(dp_axes) > 1 else dp_axes[0],
+                        *([None] * (nd - 1)))
+    return {
+        k: distribute_tensor(torch.as_tensor(v).to(mesh.device_type), mesh,
+                             placements(spec(np.ndim(v)), mesh))
+        for k, v in batch.items()
+    }

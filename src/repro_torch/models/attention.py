@@ -13,6 +13,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.layers import _normal, apply_rope
 
@@ -46,7 +47,11 @@ def chunked_attention(
     """Online-softmax attention over KV chunks.
 
     q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D].  `window` <= 0 or None
-    means no window.  Returns [B, Sq, Hq, D] in q's dtype."""
+    means no window.  Returns [B, Sq, Hq, D] in q's dtype.  DTensor
+    inputs run on each rank's local shards (`_local_heads`)."""
+    if isinstance(q, DTensor):
+        return _local_heads(chunked_attention, q, k, v, causal=causal, window=window,
+                            softcap=softcap, scale=scale, chunk=chunk, q_offset=q_offset)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     group = Hq // Hkv
@@ -87,6 +92,47 @@ def chunked_attention(
     out = acc / norm[..., None]                      # [B, Hkv, G, Sq, D]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
     return out.to(q.dtype)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous: `to_local`'s backward
+    wraps the local gradient with the DTensor's contiguous strides, and
+    a later view then fails on a strided one (the GQA einsum's)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _local_heads(fn, q, k, v, **kw):
+    """`fn(q, k, v, **kw)` on DTensors, run on local tensors: attention is
+    independent across batch rows and heads, so each rank computes its
+    own.  Per mesh dim the batch shard stays; the first other dim that
+    divides both head counts shards the heads (a q head's kv head then
+    lies in the same shard); the rest is replicated.  A local region:
+    DTensor (torch 2.11) has no rule for the einsum's flattening of a
+    head-sharded operand."""
+    mesh = q.device_mesh
+    place, heads = [], False
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        if p == Shard(0):
+            place.append(Shard(0))
+        elif not heads and q.shape[2] % n == 0 and k.shape[2] % n == 0:
+            place.append(Shard(2))
+            heads = True
+        else:
+            place.append(Replicate())
+    out = fn(*(_ContiguousGrad.apply(t.redistribute(mesh, place).to_local())
+               for t in (q, k, v)), **kw)
+    shape = q.shape[:3] + out.shape[3:]
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(out.contiguous(), mesh, place, run_check=False, shape=shape,
+                              stride=stride)
 
 
 def decode_attention(

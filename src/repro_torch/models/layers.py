@@ -18,6 +18,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.models.sharding import like
 
 F32 = torch.float32
 
@@ -46,7 +49,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     freqs = rope_freqs(d, theta, x.device)                  # [D/2]
     angles = positions[..., None].float() * freqs           # [..., S, D/2]
     angles = angles[..., None, :]                           # over heads
-    sin, cos = torch.sin(angles), torch.cos(angles)
+    sin, cos = like(torch.sin(angles), x), like(torch.cos(angles), x)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -89,10 +92,33 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, device="cuda"):
 
 def embed(table: torch.Tensor, tokens: torch.Tensor, dtype=torch.bfloat16,
           scale: bool = False) -> torch.Tensor:
-    x = table[tokens].to(dtype)
+    x = _local_embed(table, tokens) if isinstance(table, DTensor) else table[tokens]
+    x = x.to(dtype)
     if scale:
-        x = x * torch.tensor(table.shape[1] ** 0.5, dtype=dtype)
+        # the scale rounded to `dtype` first, as JAX's; a Python number,
+        # so that the product works on DTensors too
+        x = x * float(torch.tensor(table.shape[1] ** 0.5, dtype=dtype))
     return x
+
+
+def _local_embed(table: DTensor, tokens: torch.Tensor) -> DTensor:
+    """`table[tokens]` for a sharded table, on local tensors: each rank
+    gathers the whole table and looks up its own tokens; the gradient of
+    the gathered table is a partial sum over the mesh dims that split
+    the batch.  A local region: DTensor (torch 2.11) fails to place the
+    lookup's backward (an index_put into the replicated table)."""
+    mesh = table.device_mesh
+    batch = [isinstance(tokens, DTensor) and p == Shard(0)
+             for p in (tokens.placements if isinstance(tokens, DTensor)
+                       else [Replicate()] * mesh.ndim)]
+    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if b else Replicate() for b in batch])
+    local = tokens.to_local() if isinstance(tokens, DTensor) else tokens
+    shape = tuple(tokens.shape) + (table.shape[1],)
+    return DTensor.from_local(whole[local], mesh,
+                              [Shard(0) if b else Replicate() for b in batch],
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def logits(x: torch.Tensor, table: torch.Tensor,
@@ -108,7 +134,13 @@ def cross_entropy(lg: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 1e-4) -> torch.Tensor:
     """Mean token cross-entropy with an optional z-loss regularizer."""
     lse = torch.logsumexp(lg, dim=-1)
-    ll = lg.gather(-1, labels.long()[..., None])[..., 0]
+    if isinstance(lg, DTensor):
+        # DTensor's gather over a sharded vocab dim fails to reduce its
+        # masked partial; a one-hot product picks the same value exactly
+        vocab = like(torch.arange(lg.shape[-1], device=lg.device), lg)
+        ll = (lg * (labels.long()[..., None] == vocab)).sum(-1)
+    else:
+        ll = lg.gather(-1, labels.long()[..., None])[..., 0]
     loss = (lse - ll).mean()
     if z_loss:
         loss = loss + z_loss * lse.square().mean()

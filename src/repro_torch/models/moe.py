@@ -8,9 +8,15 @@ computes positions per token block (block-local capacity); `n_blocks` =
 1 is the global formulation.  Aux loss: Switch load balancing plus 1e-3
 x the router z-loss.
 
-The JAX layer's `axes` argument (SPMD constraints on the buffers) has no
-counterpart here: the port runs on one card, and sharding comes with the
-distribution slice.
+`axes` (a `models.sharding.MeshAxes`, or None on one device) shards the
+expert buffers as JAX's constraints do: the scatter path's [E, capacity,
+d] buffer on the expert dim over the model axis, the einsum path's
+[G, E, C, d] buffer on G over dp and E over model.  With `axes` the
+input and the parameters are DTensors.  The scatter path then routes,
+places and combines on local tensors (`_apply_moe_sharded`: each rank
+fills its own experts' buffer shard) and runs the expert FFN on
+DTensors; the einsum path runs on DTensors throughout, its constants
+(`arange`s, the aux loss's counts) replicated DTensors beside them.
 
 Everything here is plain tensor code with shapes fixed by the inputs: no
 host sync and no data-dependent shape, so the layer runs inside a
@@ -29,11 +35,13 @@ captured CUDA graph.  Three places differ from a literal translation:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.layers import _normal
+from repro_torch.models.sharding import MeshAxes, act_spec, constrain, like
 
 F32 = torch.float32
 
@@ -51,7 +59,7 @@ def init_moe(gen: torch.Generator, d: int, ff: int, n_experts: int, device="cuda
 
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     """`jax.nn.one_hot`: an index outside [0, n) gives a row of zeros."""
-    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+    return (idx[..., None] == like(torch.arange(n, device=idx.device), idx)).to(dtype)
 
 
 def _route(router: torch.Tensor, x: torch.Tensor, top_k: int):
@@ -74,8 +82,8 @@ def _route(router: torch.Tensor, x: torch.Tensor, top_k: int):
     T = probs.numel() // E
     me = probs.reshape(T, E).mean(dim=0)
     first = expert_idx[..., 0].reshape(T)
-    ce = torch.zeros(E, dtype=F32, device=x.device).index_add_(
-        0, first, torch.ones(T, dtype=F32, device=x.device)) / T
+    ce = like(torch.zeros(E, dtype=F32, device=x.device), x).index_add(
+        0, first, like(torch.ones(T, dtype=F32, device=x.device), x)) / T
     aux = E * (me * ce).sum()
     aux = aux + 1e-3 * torch.logsumexp(logits, dim=-1).square().mean()
     return gate_vals, expert_idx, aux
@@ -90,6 +98,31 @@ def _swiglu_experts(p: dict, buf: torch.Tensor, dtype) -> torch.Tensor:
     return torch.matmul(act, p["w_out"])
 
 
+def _slots(expert_idx: torch.Tensor, E: int, top_k: int, capacity_factor: float,
+           n_blocks: int):
+    """Capacity slots of the routed (token, slot) pairs, slot-major [K, T]:
+    (keep, slot in the expert's buffer, expert, capacity).  Positions come
+    from per-block cumsums; a dropped pair gets the overflow slot
+    `capacity`."""
+    T = expert_idx.shape[0]
+    Tb = T // n_blocks
+    cap_b = max(int(capacity_factor * Tb * top_k / E), 1)
+    capacity = cap_b * n_blocks  # per-expert total slots
+    # slot-major positions within each token block, then the expert's
+    # global slot range block * cap_b + pos
+    e_blk = expert_idx.reshape(n_blocks, Tb, top_k).transpose(1, 2)  # [NB, K, Tb]
+    onehot = _one_hot(e_blk.reshape(n_blocks, top_k * Tb), E, torch.int32)
+    pos_flat = (torch.cumsum(onehot, dim=1) - 1) * onehot
+    pos_b = pos_flat.sum(-1).reshape(n_blocks, top_k, Tb)
+    keep_b = pos_b < cap_b
+    blk = torch.arange(n_blocks, device=expert_idx.device)[:, None, None]
+    slot_b = torch.where(keep_b, pos_b + blk * cap_b, capacity)
+    keep = keep_b.transpose(0, 1).reshape(top_k, T)
+    slot = slot_b.transpose(0, 1).reshape(top_k, T)
+    e_kt = e_blk.transpose(0, 1).reshape(top_k, T)
+    return keep, slot, e_kt, capacity
+
+
 def apply_moe(
     p: dict,
     x: torch.Tensor,
@@ -98,6 +131,7 @@ def apply_moe(
     capacity_factor: float = 1.25,
     dtype=torch.bfloat16,
     n_blocks: int = 1,
+    axes: Optional[MeshAxes] = None,
     dispatch: str = "scatter",
     group_size: int = 2048,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -108,34 +142,21 @@ def apply_moe(
     `dispatch="einsum"` selects the one-hot matmul dispatch."""
     if dispatch == "einsum":
         return _apply_moe_einsum(p, x, top_k=top_k, capacity_factor=capacity_factor,
-                                 dtype=dtype, group_size=group_size)
+                                 dtype=dtype, axes=axes, group_size=group_size)
     B, S, d = x.shape
-    E = p["router"].shape[1]
     T = B * S
     if T % n_blocks != 0:
         n_blocks = 1
-    Tb = T // n_blocks
-    dev = x.device
+    if axes is not None:
+        return _apply_moe_sharded(p, x, top_k=top_k, capacity_factor=capacity_factor,
+                                  dtype=dtype, n_blocks=n_blocks, axes=axes)
+    E = p["router"].shape[1]
     xf = x.reshape(T, d)
     gate_vals, expert_idx, aux = _route(p["router"], xf, top_k)      # [T, K]
-
-    cap_b = max(int(capacity_factor * Tb * top_k / E), 1)
-    capacity = cap_b * n_blocks  # per-expert total slots
-    # slot-major positions within each token block, then the expert's
-    # global slot range block * cap_b + pos
-    e_blk = expert_idx.reshape(n_blocks, Tb, top_k).transpose(1, 2)  # [NB, K, Tb]
-    onehot = _one_hot(e_blk.reshape(n_blocks, top_k * Tb), E, torch.int32)
-    pos_flat = (torch.cumsum(onehot, dim=1) - 1) * onehot
-    pos_b = pos_flat.sum(-1).reshape(n_blocks, top_k, Tb)
-    keep_b = pos_b < cap_b
-    blk = torch.arange(n_blocks, device=dev)[:, None, None]
-    slot_b = torch.where(keep_b, pos_b + blk * cap_b, capacity)
-    keep = keep_b.transpose(0, 1).reshape(top_k, T)
-    slot = slot_b.transpose(0, 1).reshape(top_k, T)
-    e_kt = e_blk.transpose(0, 1).reshape(top_k, T)
+    keep, slot, e_kt, capacity = _slots(expert_idx, E, top_k, capacity_factor, n_blocks)
 
     # dispatch: scatter into [E, capacity + 1 overflow, d], drop overflow
-    buf = torch.zeros((E, capacity + 1, d), dtype=dtype, device=dev)
+    buf = torch.zeros((E, capacity + 1, d), dtype=dtype, device=x.device)
     buf[e_kt, slot] = xf.to(dtype).expand(top_k, T, d)
     out_e = _swiglu_experts(p, buf[:, :capacity], dtype)
     out_e = torch.nn.functional.pad(out_e, (0, 0, 0, 1))
@@ -147,6 +168,53 @@ def apply_moe(
     return y.reshape(B, S, d).to(x.dtype), aux
 
 
+def _apply_moe_sharded(p: dict, x: DTensor, *, top_k: int, capacity_factor: float,
+                       dtype, n_blocks: int, axes: MeshAxes) -> Tuple[DTensor, DTensor]:
+    """The scatter path on DTensors.  Routing, slots and the combine run on
+    local tensors, the same on every rank, over the whole batch; each rank
+    scatters the tokens of its own experts into its shard of the
+    [E, capacity, d] buffer (the experts over tp, JAX's constraint); the
+    expert FFN runs on DTensors against the sharded expert weights.  A
+    local region: DTensor (torch 2.11) gives the index ops of the
+    dispatch and the combine malformed placements."""
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    T, E = B * S, p["router"].shape[1]
+    tp = mesh.mesh_dim_names.index(axes.tp)
+    split = E % mesh.size(tp) == 0      # the experts over tp, else replicated
+    E_l = E // mesh.size(tp) if split else E
+    e0 = mesh.get_local_rank(axes.tp) * E_l if split else 0
+    whole = [Replicate()] * mesh.ndim
+    on_tp = lambda p: [p if i == tp and split else Replicate()  # noqa: E731
+                       for i in range(mesh.ndim)]
+    x_all = x.redistribute(mesh, whole)
+    # every rank routes every token, so each holds whole gradients here
+    gate_vals, expert_idx, aux = _route(p["router"].redistribute(mesh, whole).to_local(),
+                                        x_all.to_local().reshape(T, d), top_k)
+    keep, slot, e_kt, capacity = _slots(expert_idx, E, top_k, capacity_factor, n_blocks)
+
+    # dispatch: this rank's experts' pairs into its buffer shard, the rest
+    # into the overflow slot; its gradient is a partial sum over tp
+    mine = (e_kt >= e0) & (e_kt < e0 + E_l)
+    buf = torch.zeros((E_l, capacity + 1, d), dtype=dtype, device=x.device)
+    xd = x_all.to_local(grad_placements=on_tp(Partial())).reshape(T, d)
+    buf[torch.where(mine, e_kt - e0, 0), torch.where(mine, slot, capacity)] = (
+        xd.to(dtype).expand(top_k, T, d))
+    buf = DTensor.from_local(buf[:, :capacity].contiguous(), mesh, on_tp(Shard(0)),
+                             run_check=False, shape=(E, capacity, d),
+                             stride=(capacity * d, d, 1))
+    out_e = _swiglu_experts(p, buf, dtype).redistribute(mesh, whole).to_local()
+    out_e = torch.nn.functional.pad(out_e, (0, 0, 0, 1))
+
+    # combine, as the plain path
+    gathered = out_e[e_kt, slot]                                     # [K, T, d]
+    w = (gate_vals.transpose(0, 1) * keep)[..., None].float()
+    y = (gathered.float() * w).sum(0).reshape(B, S, d).to(x.dtype)
+    y = DTensor.from_local(y, mesh, whole, run_check=False)
+    return (constrain(y, axes, act_spec(axes, "dp", None, None)),
+            DTensor.from_local(aux, mesh, whole, run_check=False))
+
+
 def _apply_moe_einsum(
     p: dict,
     x: torch.Tensor,
@@ -154,6 +222,7 @@ def _apply_moe_einsum(
     top_k: int,
     capacity_factor: float,
     dtype,
+    axes: Optional[MeshAxes],
     group_size: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GShard-style dispatch: one-hot (token -> expert, slot) tensors
@@ -181,10 +250,16 @@ def _apply_moe_einsum(
 
     disp = torch.einsum("gkse,gksc->gsec", oh.to(dtype), pos_oh)     # [G, Sg, E, C]
     buf = torch.einsum("gsec,gsd->gecd", disp, xg.to(dtype))
+    buf = constrain(buf, axes, act_spec(axes, "dp", "tp", None, None))
     out_e = _swiglu_experts(p, buf, dtype)                           # [G, E, C, d]
 
     gates_sm = gate_vals.transpose(1, 2)                             # [G, K, Sg]
     comb = torch.einsum("gkse,gksc,gks->gsec", oh.float(), pos_oh.float(),
                         gates_sm * keep).to(dtype)
     y = torch.einsum("gsec,gecd->gsd", comb, out_e)
-    return y.reshape(B, S, d).to(x.dtype), aux
+    # the tokens on the dp axes, before the view (a partial sum over tp
+    # cannot be viewed by DTensor in torch 2.11) and after it (DTensor's
+    # backward through it fails on a gradient split over dp and tp)
+    y = constrain(y, axes, act_spec(axes, "dp", None, None))
+    y = constrain(y.reshape(B, S, d), axes, act_spec(axes, "dp", None, None))
+    return y.to(x.dtype), aux

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _normal, rms_norm
+from repro_torch.models.sharding import like
 
 F32 = torch.float32
 
@@ -104,7 +105,8 @@ def apply_rwkv6(p: dict, x: torch.Tensor, *, head_dim: int,
     dtype = x.dtype
     H = d // head_dim
     if state is None:
-        state = init_rwkv6_state(B, d, head_dim, device=x.device)
+        state = {k: like(v, x) for k, v in
+                 init_rwkv6_state(B, d, head_dim, device=x.device).items()}
 
     residual = x
     x = rms_norm(x, p["ln1"])

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _normal, rms_norm
+from repro_torch.models.sharding import like
 
 F32 = torch.float32
 
@@ -83,7 +84,7 @@ def _chunk_step(Hst, la_c, xd_c, B_c, C_c):
     # exponents are positive, overflow to inf, and inf * 0 is NaN
     cb = torch.einsum("bin,bjn->bij", C_c, B_c)                # [B, L, L]
     idx = torch.arange(L, device=la_c.device)
-    mask = idx[:, None] >= idx[None, :]
+    mask = like(idx[:, None] >= idx[None, :], la_c)
     diff = cums[:, :, None, :] - cums[:, None, :, :]           # [B, i, j, H]
     dec = torch.exp(torch.where(mask[None, :, :, None], diff, -torch.inf))
     w = cb[..., None] * dec
@@ -127,7 +128,7 @@ def apply_mamba2(p: dict, x: torch.Tensor, *, d_inner: int, d_state: int, head_d
         xd = F.pad(xd, (0, 0, 0, 0, 0, pad))
         Bf = F.pad(Bf, (0, 0, 0, pad))
         Cf = F.pad(Cf, (0, 0, 0, pad))
-    Hst = torch.zeros((Bsz, H, N, P), dtype=F32, device=x.device)
+    Hst = like(torch.zeros((Bsz, H, N, P), dtype=F32, device=x.device), x)
     ys = []
     for c in range(0, S + pad, L):
         Hst, y_c = _chunk_step(Hst, la[:, c : c + L], xd[:, c : c + L], Bf[:, c : c + L],

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import functools
 import itertools
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -62,6 +62,7 @@ from repro_torch.models.layers import (
     logits as lm_logits,
     rms_norm,
 )
+from repro_torch.models.sharding import MeshAxes, act_spec, constrain, like
 
 # the weights JAX casts to the compute dtype (`.astype(dtype)`) at their matmul
 _MATMUL = {"wq", "wk", "wv", "wo", "w_gate", "w_in", "w_out",
@@ -223,11 +224,12 @@ def _unstack(tree, n: int) -> list:
     return tree.unbind(0)
 
 
-def _dense_body(cfg: ArchConfig, carry, xs):
+def _dense_body(cfg: ArchConfig, axes, carry, xs):
     """One training layer: (x, aux) -> (x, aux).  MoE layers run at the
     training capacity factor and add their aux loss."""
     x, aux = carry
     lp, window = xs
+    x = constrain(x, axes, act_spec(axes, "dp", None, None))
     lp = cast_matmul(lp, x.dtype)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     h = attention_block(lp["attn"], h, window=window, **_attn_kwargs(cfg))
@@ -238,8 +240,8 @@ def _dense_body(cfg: ArchConfig, carry, xs):
     if cfg.n_experts:
         h, a = moe_lib.apply_moe(
             lp["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-            dtype=h.dtype, n_blocks=cfg.dispatch_blocks, dispatch=cfg.dispatch_mode,
-            group_size=cfg.dispatch_group,
+            dtype=h.dtype, n_blocks=cfg.dispatch_blocks, axes=axes,
+            dispatch=cfg.dispatch_mode, group_size=cfg.dispatch_group,
         )
         aux = aux + a
     else:
@@ -249,10 +251,11 @@ def _dense_body(cfg: ArchConfig, carry, xs):
     return x + h, aux
 
 
-def _hybrid_body(cfg: ArchConfig, shared: dict, carry, gp):
+def _hybrid_body(cfg: ArchConfig, axes, shared: dict, carry, gp):
     """One training group: `attn_every` Mamba2 layers (`gp`'s leaves
     [attn_every, ...]), then the shared attention block."""
     x, aux = carry
+    x = constrain(x, axes, act_spec(axes, "dp", None, None))
     gp = cast_matmul(gp, x.dtype)
     shared = cast_matmul(shared, x.dtype)
     for lp in _unstack(gp, cfg.attn_every):
@@ -263,26 +266,29 @@ def _hybrid_body(cfg: ArchConfig, shared: dict, carry, gp):
     return x + h, aux
 
 
-def _ssm_body(cfg: ArchConfig, carry, lp):
+def _ssm_body(cfg: ArchConfig, axes, carry, lp):
     x, aux = carry
+    x = constrain(x, axes, act_spec(axes, "dp", None, None))
     x, _ = rwkv_lib.apply_rwkv6(cast_matmul(lp, x.dtype), x, head_dim=cfg.rwkv_head_dim)
     return x, aux
 
 
-def forward(cfg: ArchConfig, params: dict, x: torch.Tensor, *, remat: bool = False):
-    """x: [B, S, d] embedded inputs -> (hidden [B, S, d], aux loss)."""
+def forward(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
+            axes: Optional[MeshAxes] = None, remat: bool = False):
+    """x: [B, S, d] embedded inputs -> (hidden [B, S, d], aux loss).
+    With `axes`, parameters and `x` are DTensors on the current mesh."""
     if cfg.family in ATTENTION_FAMILIES:
-        body = functools.partial(_dense_body, cfg)
+        body = functools.partial(_dense_body, cfg, axes)
         steps = zip(_unstack(params["layers"], cfg.n_layers), window_array(cfg))
     elif cfg.family == "hybrid":
-        body = functools.partial(_hybrid_body, cfg, params["shared_attn"])
+        body = functools.partial(_hybrid_body, cfg, axes, params["shared_attn"])
         steps = _unstack(params["groups"], cfg.n_layers // cfg.attn_every)
     elif cfg.family == "ssm":
-        body = functools.partial(_ssm_body, cfg)
+        body = functools.partial(_ssm_body, cfg, axes)
         steps = _unstack(params["layers"], cfg.n_layers)
     else:
         raise ValueError(cfg.family)
-    carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
+    carry = (x, like(torch.zeros((), dtype=torch.float32, device=x.device), x))
     for xs in steps:
         if remat:
             carry = checkpoint(body, carry, xs, use_reentrant=False,
@@ -300,15 +306,20 @@ def _embed_inputs(cfg: ArchConfig, params: dict, batch: dict, dtype) -> torch.Te
     return embed(params["embed"], batch["tokens"], dtype, scale=cfg.embed_scale)
 
 
-def train_loss(cfg: ArchConfig, params: dict, batch: dict, *, dtype=torch.bfloat16,
+def train_loss(cfg: ArchConfig, params: dict, batch: dict, *,
+               axes: Optional[MeshAxes] = None, dtype=torch.bfloat16,
                remat: bool = True) -> torch.Tensor:
     """Mean token cross-entropy (z-loss 1e-4) plus 0.01 x the MoE aux
     loss; `batch` holds "labels" [B, S] and "tokens" [B, S] or, for the
-    stub frontends, "embeds" [B, S, d]."""
+    stub frontends, "embeds" [B, S, d].  With `axes`, the parameters and
+    the batch are DTensors on the current mesh (`models.sharding`,
+    `data.pipeline.place_on_mesh`) and so is the loss."""
     x = _embed_inputs(cfg, params, batch, dtype)
-    h, aux = forward(cfg, params, x, remat=remat)
+    x = constrain(x, axes, act_spec(axes, "dp", None, None))
+    h, aux = forward(cfg, params, x, axes=axes, remat=remat)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     lg = lm_logits(h, table, cfg.final_softcap or None)
+    lg = constrain(lg, axes, act_spec(axes, "dp", None, "tp"))
     return cross_entropy(lg, batch["labels"]) + 0.01 * aux
 
 

@@ -9,6 +9,10 @@ not fit the card beside its gradients.  The arithmetic is JAX's, in
 float32 and in its order: the schedule and the bias corrections are
 float32 tensors, the clip is min(1, clip / (norm + 1e-9)), and the decay
 joins the update before the learning rate scales it.
+
+Sharded leaves (DTensors, each gradient in its parameter's placement):
+the global norm is one reduction over the mesh, and every other step
+is elementwise, so each rank updates its local shards in place.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree_util import leaves, tree_map
 
@@ -60,8 +66,16 @@ def init(params) -> AdamWState:
                       m=zeros(), v=zeros())
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its storage: in-place updates land in
+    the DTensor), a plain tensor itself."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
+    """The norm over every leaf; a plain tensor, the same on every rank."""
+    norm = torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
+    return norm.full_tensor() if isinstance(norm, DTensor) else norm
 
 
 @torch.no_grad()
@@ -74,10 +88,11 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
     if cfg.clip_norm is not None:
         scale = (cfg.clip_norm / (gnorm + 1e-9)).clamp(max=1.0)
     step = state.step + 1
-    lr = schedule(cfg, step)
-    b1c = 1 - cfg.b1 ** step.float()
-    b2c = 1 - cfg.b2 ** step.float()
-    for p, g, m, v in zip(*(leaves(t) for t in (params, grads, state.m, state.v))):
+    lr = schedule(cfg, _local(step))
+    b1c = 1 - cfg.b1 ** _local(step).float()
+    b2c = 1 - cfg.b2 ** _local(step).float()
+    for p, g, m, v in zip(*(map(_local, leaves(t))
+                            for t in (params, grads, state.m, state.v))):
         g = g.float()
         if scale is not None:
             g.mul_(scale)

@@ -14,9 +14,16 @@ their gradients and the two moments, with no second copy.
 `Trainer` is the host-side driver: data, periodic async checkpoints,
 step timing and metrics.
 
-The distribution slice brings `axes`, `constrain_grads`, the compressed
-all-reduce and pipeline parallelism; until then `make_train_step`
-refuses them.
+Sharded training (`axes`, a `models.sharding.MeshAxes`): the state's
+leaves are DTensors on the current mesh (`launch.mesh.use_mesh`;
+`models.sharding.shard_tree` with `param_specs`), each microbatch is
+placed on the mesh's dp axes (`data.pipeline.place_on_mesh`) and the
+model runs on DTensors.  A parameter's gradient leaves the backward in
+whatever placement DTensor gave it (often a `Partial` sum over dp); it
+reaches AdamW in its parameter's placement, by `constrain_grads`
+(JAX's constraint to the parameter specs) or, when that flag is off,
+by the step itself, since AdamW updates each leaf's local shard in
+place.  The metrics are plain tensors, the same on every rank.
 """
 
 from __future__ import annotations
@@ -27,12 +34,21 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.configs.base import ArchConfig
-from repro_torch.data.pipeline import to_device
+from repro_torch.data.pipeline import place_on_mesh, to_device
+from repro_torch.models.sharding import (
+    MeshAxes,
+    active_mesh,
+    constrain,
+    param_specs,
+    spec_leaves,
+)
 from repro_torch.models.transformer import init_params, train_loss
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import ef_roundtrip, init_error_buf
-from repro_torch.tree_util import block_until_ready, leaves, tree_map
+from repro_torch.tree_util import block_until_ready, flatten, leaves, tree_map
 
 
 class TrainState(NamedTuple):
@@ -50,7 +66,9 @@ class TrainConfig:
     # cast the float32 master weights to the compute dtype ONCE before
     # the layer stack (JAX's rule: every float32 leaf with ndim >= 2)
     cast_params_once: bool = False
-    # sharded gradients: the distribution slice; only False here
+    # constrain gradients to the parameter shardings (a reduce-scatter
+    # of a Partial gradient into the FSDP shard); with it off the step
+    # moves them to the parameters' placements before AdamW all the same
     constrain_grads: bool = False
     optimizer: adamw.AdamWConfig = dataclasses.field(
         default_factory=adamw.AdamWConfig
@@ -66,17 +84,22 @@ def init_train_state(cfg: ArchConfig, tcfg: TrainConfig, gen: torch.Generator,
     return TrainState(params, opt, ebuf)
 
 
+def _full(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor as the whole tensor on every rank (a collective)."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def make_train_step(
     cfg: ArchConfig,
     tcfg: TrainConfig,
-    axes=None,
+    axes: Optional[MeshAxes] = None,
 ) -> Callable[[TrainState, dict], tuple]:
-    """Returns step(state, batch) -> (state, metrics).  `batch` holds
-    numpy arrays or tensors, moved to the parameters' device; the state's
-    tensors are updated in place and returned."""
-    if axes is not None or tcfg.constrain_grads:
-        raise NotImplementedError("sharded training (axes, constrain_grads) comes "
-                                  "with the distribution slice")
+    """Returns step(state, batch) -> (state, metrics).  `batch` holds the
+    global batch as numpy arrays or tensors, moved to the parameters'
+    device (with `axes`: each microbatch placed on the current mesh); the
+    state's tensors are updated in place and returned."""
+    if axes is not None and not isinstance(axes, MeshAxes):
+        raise TypeError(f"axes must be a MeshAxes, not {type(axes).__name__}")
 
     def loss_fn(params, batch):
         if tcfg.cast_params_once:
@@ -86,11 +109,16 @@ def make_train_step(
                 else p,
                 params,
             )
-        return train_loss(cfg, params, batch, dtype=tcfg.dtype, remat=tcfg.remat)
+        return train_loss(cfg, params, batch, axes=axes, dtype=tcfg.dtype,
+                          remat=tcfg.remat)
 
     def step(state: TrainState, batch: dict):
         flat = leaves(state.params)
-        batch = to_device(batch, flat[0].device)
+        if axes is None:
+            batch = to_device(batch, flat[0].device)
+        else:
+            mesh = active_mesh()
+            batch = {k: _full(torch.as_tensor(v)) for k, v in batch.items()}
         for p in flat:
             p.requires_grad_(True)
         n_micro = tcfg.microbatches
@@ -98,13 +126,22 @@ def make_train_step(
         for i in range(n_micro):
             mb = {k: v.reshape((n_micro, v.shape[0] // n_micro) + v.shape[1:])[i]
                   for k, v in batch.items()}
+            if axes is not None:
+                mb = place_on_mesh(mb, mesh, axes.dp)
             mloss = loss_fn(state.params, mb)
             mloss.backward()
-            loss = loss + mloss.detach()
+            loss = loss + _full(mloss.detach())
         grads = tree_map(
             lambda p: torch.zeros_like(p) if p.grad is None else p.grad, state.params)
         for p in flat:
             p.grad = None
+        if axes is not None:
+            gl, treedef = flatten(grads)
+            if tcfg.constrain_grads:
+                gl = [constrain(g, axes, s)
+                      for g, s in zip(gl, spec_leaves(param_specs(axes, grads)))]
+            grads = treedef.unflatten([g.redistribute(p.device_mesh, p.placements)
+                                       for g, p in zip(gl, flat)])
         if n_micro > 1:
             loss = loss / n_micro
             for g in leaves(grads):

@@ -13,7 +13,8 @@
 - twins of tests/test_substrates.py's TestTrainerLoop and of
   tests/test_system.py's train CLI test (a subprocess of
   `python -m repro_torch.launch.train --device cpu`);
-- `Trainer` with checkpoints; the refusal of the sharded options;
+- `Trainer` with checkpoints; a sharded step's refusal of other `axes`
+  and of a missing mesh;
 - the hybrid and ssm families (zamba2-1.2b, rwkv6-7b reduced): three
   steps beside JAX's jitted step (loss within 1e-5 relative, parameters
   within 1e-3 of each leaf's largest element), each family's train
@@ -42,6 +43,7 @@ from repro.train.trainer import make_train_step as jmake_train_step
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.models.sharding import MeshAxes
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.trainer import (
     TrainConfig,
@@ -214,8 +216,14 @@ def test_train_cli_hybrid():
 
 
 def test_sharded_options_refused():
+    """`axes` must be a MeshAxes, and a sharded step needs a current mesh
+    (the sharded path itself: tests/test_torch_distribution_*.py)."""
     cfg = get_config("stablelm-3b").reduced()
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        make_train_step(cfg, TrainConfig(constrain_grads=True))
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    with pytest.raises(TypeError, match="MeshAxes"):
         make_train_step(cfg, TrainConfig(), axes=object())
+    tcfg = TrainConfig(dtype=torch.float32, constrain_grads=True)
+    step = make_train_step(cfg, tcfg, axes=MeshAxes())
+    state = init_train_state(cfg, tcfg, torch.Generator().manual_seed(0), "cpu")
+    batch = SyntheticLM(cfg.vocab_size, 8, 2).batch_at(0)
+    with pytest.raises(RuntimeError, match="current mesh"):
+        step(state, batch)
