@@ -193,7 +193,19 @@ Phases (any failure fails the run, exit code 1):
      64M-element fp32 gradient over NCCL, equal to
      `decompress(*compress(g))`, timed beside a plain fp32 all_reduce;
      (d) `pipeline_apply` with one stage against the sequential layers
-     within 1e-5;
+     within 1e-5; (e) sharded serving: stablelm-3b at full width and
+     depth, random bf16 weights from seed 0, `prefill` of 8 prompts of
+     512 into a cache of 1024 and 32 greedy `decode_step`s, sharded
+     (parameters by `param_specs` + `shard_tree`, the cache placed by
+     `cache_pspecs`) and unsharded from the same weights: the tokens
+     equal, the logits' largest difference at steps 1 and 32, steady ms
+     per decode step, prefill s, host s per sharded decode call, peak
+     memory; fp32 at full width, sharded against unsharded, prefill of
+     2 x 64 and 8 decode steps: phi3.5-moe and gemma2-27b cut to 2
+     layers, zamba2-1.2b to one group, rwkv6-7b to 2 layers (logits and
+     cache leaves within 1e-5 of their max, the difference reported);
+     B=1 on the cache rule's branch for a batch that does not divide
+     over dp;
   13. flash: with its launch count at 0, the differentiable
      `ops.flash_attention` (kernel 5 forward) at full attention width in
      bf16, B=1: stablelm-3b (32/32 heads, D=80, S=4096, causal),
@@ -3371,6 +3383,22 @@ DIST_STEPS = 3
 DIST_PSUM = dict(numel=64 << 20, reps=5)
 # (d) pipeline_apply with one stage against the sequential layers
 DIST_PP = dict(layers=8, n_micro=4, mb=256, tol=1e-5)
+# (e) sharded serving against unsharded from the same weights: stablelm-3b
+# at full width and depth in bf16, `batch` prompts of `prompt` into a
+# cache of `max_len`, `steps` greedy decode steps (the first `warm` not in
+# the steady ms); the greedy tokens must be equal (a (1, 1) mesh runs the
+# same local ops)
+DIST_SERVE = dict(batch=8, prompt=512, max_len=1024, steps=32, warm=2)
+# then each family's placements in fp32 at full width cut to `layers`
+# (zamba2: one group): prefill of `batch` x `prompt`, `steps` decode
+# steps on seeded tokens; logits and final cache leaves within `tol` of
+# their max (the CPU tests' bound; bit equality expected and reported);
+# and B=1 with the cache placed by the rule's branch for a batch that
+# does not divide over dp (every batch divides over a dp group of one)
+DIST_SERVE_FP32 = dict(layers={"phi3.5-moe-42b-a6.6b": 2, "zamba2-1.2b": None,
+                               "rwkv6-7b": 2, "gemma2-27b": 2},
+                       batch=2, prompt=64, steps=8, tol=1e-5)
+DIST_SERVE_B1 = dict(prompt=64, steps=4)
 
 
 def dist_check(torch, dev, cfg, mesh, axes):
@@ -3583,11 +3611,211 @@ def dist_pipeline(torch, dev, cfg):
     return row
 
 
+def serve_tokens(torch, dev, vocab, shape, seed):
+    return torch.randint(0, vocab, shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+
+
+def serve_run(torch, dev, cfg, params, prompts, max_len, steps, dtype, *, mesh=None,
+              axes=None, feed=None, place_cache=None):
+    """`prefill` then `steps` decode steps, sharded when `axes` is given
+    (inside `use_mesh(mesh)`): greedy, or on the tokens of `feed` [B,
+    steps].  `place_cache(cache)` may re-place prefill's cache before the
+    steps.  Returns the logits of prefill and of each step (plain
+    tensors), the tokens fed, the cache, and times: prefill s (host clock
+    ending in a synchronize), each step's device ms (CUDA events) and
+    host s per call, peak GB."""
+    import contextlib
+
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models.transformer import decode_step, prefill
+
+    whole = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t  # noqa: E731
+    ctx = use_mesh(mesh) if axes is not None else contextlib.nullcontext()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with ctx:
+        t0 = time.perf_counter()
+        lg, cache = prefill(cfg, params, {"tokens": prompts}, max_len, axes=axes, dtype=dtype)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        if place_cache is not None:
+            cache = place_cache(cache)
+        logits, fed, events, host_s = [whole(lg)], [], [], []
+        for t in range(steps):
+            tok = logits[-1].argmax(-1) if feed is None else feed[:, t]
+            fed.append(tok)
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            h0 = time.perf_counter()
+            ev[0].record()
+            lg, cache = decode_step(cfg, params, cache, tok, axes=axes, dtype=dtype)
+            ev[1].record()
+            host_s.append(time.perf_counter() - h0)
+            events.append(ev)
+            logits.append(whole(lg))
+        torch.cuda.synchronize()
+    return dict(logits=logits, tokens=torch.stack(fed, 1), cache=cache, prefill_s=prefill_s,
+                step_ms=[a.elapsed_time(b) for a, b in events], host_s=host_s,
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def cache_placed(torch, cfg, cache, mesh, axes, divisible):
+    """Whether every tensor leaf of `cache` is a DTensor placed by
+    `cache_pspecs` (the branch `divisible` says)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.sharding import cache_pspecs, dp_spec, placements, spec_leaves
+    from repro_torch.tree_util import leaves
+
+    specs = spec_leaves(cache_pspecs(cfg, cache, dp_spec(axes), axes.tp, divisible))
+    return all(isinstance(x, DTensor) and x.placements == placements(s, mesh)
+               for x, s in zip(leaves(cache), specs) if torch.is_tensor(x))
+
+
+def leaf_diff(torch, got, want):
+    """Largest |got - want| over `want`'s largest |value|, and whether the
+    two are bit-equal (`got` a DTensor or a plain tensor)."""
+    got = got.full_tensor() if hasattr(got, "full_tensor") else got
+    diff = float((got.float() - want.float()).abs().max())
+    return diff / max(float(want.float().abs().max()), 1e-30), bool(torch.equal(got, want))
+
+
+def dist_serve(torch, dev, mesh, axes):
+    """(e): sharded `prefill` and `decode_step` against unsharded."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.sharding import (cache_pspecs, dp_spec, param_specs,
+                                             shard_tree)
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree_util import leaves
+
+    out = {}
+    r = DIST_SERVE
+    cfg = get_config(TRAIN_ARCH)
+    bf16 = torch.bfloat16
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                         dtype=bf16)
+    sharded_params = shard_tree(params, param_specs(axes, params), mesh)
+    prompts = serve_tokens(torch, dev, cfg.vocab_size, (r["batch"], r["prompt"]), 21)
+    plain = serve_run(torch, dev, cfg, params, prompts, r["max_len"], r["steps"], bf16)
+    sharded = serve_run(torch, dev, cfg, sharded_params, prompts, r["max_len"], r["steps"],
+                        bf16, mesh=mesh, axes=axes)
+    placed = cache_placed(torch, cfg, sharded["cache"], mesh, axes, True)
+    equal = bool(torch.equal(sharded["tokens"], plain["tokens"]))
+    # step t's logits are those of decode step t (index 0: prefill's)
+    step_diff = [float((a - b).abs().max())
+                 for a, b in zip(sharded["logits"], plain["logits"])]
+    finite = all(bool(torch.isfinite(x).all()) for x in sharded["logits"])
+    steady = lambda ms: sum(ms[r["warm"]:]) / len(ms[r["warm"]:])  # noqa: E731
+    full = dict(arch=cfg.name, n_layers=cfg.n_layers, batch=r["batch"], prompt=r["prompt"],
+                max_len=r["max_len"], steps=r["steps"], tokens_equal=equal,
+                cache_placed=placed, prefill_logit_diff=step_diff[0],
+                step1_logit_diff=step_diff[1], step32_logit_diff=step_diff[r["steps"]],
+                max_logit_diff=max(step_diff), finite=finite)
+    for name, run in (("sharded", sharded), ("unsharded", plain)):
+        full[name] = dict(prefill_s=run["prefill_s"], step_ms=run["step_ms"],
+                          ms_per_decode_step=steady(run["step_ms"]),
+                          decode_tokens_per_s=r["batch"] / (steady(run["step_ms"]) / 1e3),
+                          host_s_per_call=run["host_s"], peak_gb=run["peak_gb"])
+    out["full"] = full
+    log(f"[dist] (e) {cfg.name} full depth ({cfg.n_layers} layers), bf16, {r['batch']} "
+        f"prompts of {r['prompt']}, cache {r['max_len']}, {r['steps']} greedy steps: tokens "
+        f"sharded == unsharded {equal}; largest logit difference prefill "
+        f"{step_diff[0]:.3e}, step 1 {step_diff[1]:.3e}, step {r['steps']} "
+        f"{step_diff[r['steps']]:.3e}; cache placed by cache_pspecs {placed}")
+    for name in ("sharded", "unsharded"):
+        row = full[name]
+        log(f"[dist]     {name}: prefill {row['prefill_s']:.3f} s, decode "
+            f"{row['ms_per_decode_step']:.3f} ms per step (steady, CUDA events; the first "
+            f"{[round(t, 2) for t in row['step_ms'][:4]]}), {row['decode_tokens_per_s']:.1f} "
+            f"tokens/s, host s per call {[round(h, 4) for h in row['host_s_per_call'][:4]]}"
+            f" ... {round(row['host_s_per_call'][-1], 4)}, peak {row['peak_gb']:.2f} GB")
+
+    # B=1: prefill, then the cache placed by the rule's branch for a batch
+    # that does not divide over dp (S over every mesh axis)
+    b1 = DIST_SERVE_B1
+    one = prompts[:1, :b1["prompt"]]
+    max_len = b1["prompt"] + b1["steps"]
+
+    def spread(cache):
+        specs = cache_pspecs(cfg, cache, dp_spec(axes), axes.tp, False)
+        whole = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
+                 for k, v in cache.items()}
+        return shard_tree(whole, specs, mesh)
+
+    p1 = serve_run(torch, dev, cfg, params, one, max_len, b1["steps"], bf16)
+    s1 = serve_run(torch, dev, cfg, sharded_params, one, max_len, b1["steps"], bf16,
+                   mesh=mesh, axes=axes, place_cache=spread)
+    b1_row = dict(prompt=b1["prompt"], steps=b1["steps"],
+                  cache_placed=cache_placed(torch, cfg, s1["cache"], mesh, axes, False),
+                  tokens_equal=bool(torch.equal(s1["tokens"], p1["tokens"])),
+                  max_logit_diff=max(float((a - b).abs().max())
+                                     for a, b in zip(s1["logits"], p1["logits"])))
+    out["b1"] = b1_row
+    log(f"[dist] (e) B=1, {b1['prompt']} tokens, {b1['steps']} greedy steps on the cache placed "
+        f"by the non-divisible branch (S over every axis; placed after the steps "
+        f"{b1_row['cache_placed']}): tokens equal {b1_row['tokens_equal']}, largest logit "
+        f"difference {b1_row['max_logit_diff']:.3e}")
+    del params, sharded_params, plain, sharded, p1, s1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # each family's placements in fp32 at full width, cut in depth
+    c = DIST_SERVE_FP32
+    rows = []
+    for name, layers in c["layers"].items():
+        base = get_config(name)
+        cut = dataclasses.replace(base, n_layers=layers or base.attn_every)
+        t0 = time.perf_counter()
+        params = init_params(cut, torch.Generator(device=dev).manual_seed(0), device=dev,
+                             dtype=torch.float32)
+        sharded_params = shard_tree(params, param_specs(axes, params), mesh)
+        prompts = serve_tokens(torch, dev, cut.vocab_size, (c["batch"], c["prompt"]), 22)
+        feed = serve_tokens(torch, dev, cut.vocab_size, (c["batch"], c["steps"]), 23)
+        max_len = c["prompt"] + c["steps"]
+        plain = serve_run(torch, dev, cut, params, prompts, max_len, c["steps"],
+                          torch.float32, feed=feed)
+        sharded = serve_run(torch, dev, cut, sharded_params, prompts, max_len, c["steps"],
+                            torch.float32, mesh=mesh, axes=axes, feed=feed)
+        logit = [leaf_diff(torch, a, b) for a, b in zip(sharded["logits"], plain["logits"])]
+        cache = [leaf_diff(torch, a, b) for a, b in
+                 zip(leaves(sharded["cache"]), leaves(plain["cache"])) if torch.is_tensor(b)]
+        row = dict(arch=name, n_layers=cut.n_layers, batch=c["batch"], prompt=c["prompt"],
+                   steps=c["steps"], logit_rel_diff=max(d for d, _ in logit),
+                   logits_bit_equal=sum(e for _, e in logit), logit_outputs=len(logit),
+                   cache_rel_diff=max(d for d, _ in cache),
+                   cache_leaves_bit_equal=sum(e for _, e in cache), cache_leaves=len(cache),
+                   cache_placed=cache_placed(torch, cut, sharded["cache"], mesh, axes, True),
+                   sharded_prefill_s=sharded["prefill_s"], unsharded_prefill_s=plain["prefill_s"],
+                   sharded_host_s_per_call=sharded["host_s"], run_s=time.perf_counter() - t0)
+        rows.append(row)
+        log(f"[dist] (e) fp32 {name} at full width, {cut.n_layers} layers, {c['batch']} x "
+            f"{c['prompt']} + {c['steps']} steps, sharded against unsharded: logits "
+            f"{row['logit_rel_diff']:.3e} of their max (bit-equal {row['logits_bit_equal']} of "
+            f"{len(logit)}), cache leaves {row['cache_rel_diff']:.3e} (bit-equal "
+            f"{row['cache_leaves_bit_equal']} of {len(cache)}); limit {c['tol']:g}; placed "
+            f"{row['cache_placed']}; {row['run_s']:.1f} s")
+        del params, sharded_params, plain, sharded
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["fp32"] = rows
+    bad = [k for k, ok in (("tokens", full["tokens_equal"]), ("placed", full["cache_placed"]),
+                           ("finite", full["finite"]), ("b1 tokens", b1_row["tokens_equal"]),
+                           ("b1 placed", b1_row["cache_placed"]))
+           if not ok]
+    bad += [f"fp32 {x['arch']}" for x in rows if not (
+        x["cache_placed"] and x["logit_rel_diff"] <= c["tol"] and x["cache_rel_diff"] <= c["tol"])]
+    if bad:
+        raise AssertionError(f"dist (e): {bad}")
+    return out
+
+
 def phase_dist(torch, dev, report):
     """The distribution layer over NCCL on the card, no kernel of the port
     on its path: (a) fp32 sharded loss and gradients against unsharded,
     (b) full-depth sharded training beside the unsharded step, (c) the
-    compressed all-reduce, (d) the pipeline with one stage."""
+    compressed all-reduce, (d) the pipeline with one stage, (e) sharded
+    serving against unsharded."""
     import socket
 
     import torch.distributed as dist
@@ -3621,6 +3849,12 @@ def phase_dist(torch, dev, report):
         out["steps"] = dist_steps(torch, dev, cfg, mesh, axes, report)
         out["psum"] = dist_psum(torch, dev, mesh)
         out["pipeline"] = dist_pipeline(torch, dev, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out["serve"] = dist_serve(torch, dev, mesh, axes)
+        out["serve"]["part_s"] = time.perf_counter() - t
+        log(f"[dist] (e) in {out['serve']['part_s']:.1f} s")
     finally:
         dist.destroy_process_group()
         gc.collect()

@@ -25,9 +25,10 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import _normal, rms_norm
-from repro_torch.models.sharding import like
+from repro_torch.models.sharding import like, on_rows_and_heads
 
 F32 = torch.float32
 
@@ -127,8 +128,14 @@ def apply_rwkv6(p: dict, x: torch.Tensor, *, head_dim: int,
     dd = torch.tanh(xw.float() @ p["wl_a"].float()) @ p["wl_b"].float()
     w = torch.exp(-torch.exp(p["w0"][None, None] + dd))      # [B, S, d] in (0, 1)
 
-    y, wkv = _wkv_scan(r.float(), k.float(), v.float(), w, p["u"], head_dim,
-                       state["wkv"])
+    scan = (r.float(), k.float(), v.float(), w, p["u"], state["wkv"])
+    if isinstance(w, DTensor):
+        # a local region: the scan's per-head products flatten a
+        # head-sharded batch, which DTensor (torch 2.11) refuses
+        y, wkv = on_rows_and_heads(lambda *a: _wkv_scan(*a[:5], head_dim, a[5]), scan,
+                                   [(0, 2)] * 4 + [(None, 0), (0, 1)], [(0, 2), (0, 1)], H)
+    else:
+        y, wkv = _wkv_scan(*scan[:5], head_dim, scan[5])
     y = _group_norm(y.to(dtype), p["ln_scale"], H)
     y = (y * F.silu(g.float()).to(dtype)) @ p["w_o"]
     residual = residual + y

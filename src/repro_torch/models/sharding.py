@@ -20,15 +20,32 @@ its TP-parallel dimension on 'model' (attention heads / ffn hidden /
 vocab / experts) and its other large dimension on the DP group
 (ZeRO-3-style weight sharding); DTensor inserts the gathers.
 `_RULES` and `_MOE_3D` are JAX's tables as they are.
+
+Serving placements (`batch_specs`, `cache_pspecs`) are JAX's
+`repro/launch/dryrun.py` rules (`:51-57`, `:60-87`), copied here
+because the port has no `jit` with `out_shardings`: `prefill` itself
+places the cache it builds (`models.transformer.init_cache(axes=...)`),
+and `decode_step` keeps each leaf where it came in.  The decode cache's
+K/V [sites, B, S, Hkv, D] put B on the dp group and S on the model axis
+(S over every axis when B does not divide over dp: `batch_divisible`,
+JAX's `build_cell`); the Mamba2 and RWKV states put their heads (or
+`d`) on the model axis.  `shard_range` says which rows of a sharded
+dim a rank holds, and `site` views one site of a stacked leaf, for the
+local regions that write the cache in place.  `on_rows_and_heads` runs
+work that is independent across batch rows and heads on each rank's
+local tensors (a local region, where DTensor of torch 2.11 has no
+working rule: attention, the Mamba2 scan and step, the wkv scan).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from repro_torch.tree_util import flatten
 
@@ -103,10 +120,27 @@ def like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 def constrain(x: torch.Tensor, axes: Optional[MeshAxes], spec: tuple) -> torch.Tensor:
+    """`x` placed by `spec` on the current mesh.  A dim of size 1, or one
+    that does not divide over the mesh dims of its entry, stays whole:
+    XLA pads such a dim, while DTensor cannot view or flatten an
+    unevenly split one, nor drop a split dim of size 1 (a batch of 1 on
+    the dp group of serving)."""
     if axes is None:
         return x
     mesh = active_mesh()
-    return replicated(x, mesh).redistribute(mesh, placements(spec, mesh))
+    place = list(placements(spec, mesh))
+    for d in {p.dim for p in place if isinstance(p, Shard)}:
+        split = [i for i, p in enumerate(place) if p == Shard(d)]
+        if x.shape[d] == 1 or x.shape[d] % math.prod(mesh.size(i) for i in split):
+            for i in split:
+                place[i] = Replicate()
+    return replicated(x, mesh).redistribute(mesh, place)
+
+
+def dp_spec(axes: MeshAxes):
+    """The dp group as one spec entry: its one axis name, or the tuple
+    of names (JAX dryrun's `_dp`)."""
+    return axes.dp if len(axes.dp) > 1 else axes.dp[0]
 
 
 def act_spec(axes: Optional[MeshAxes], *dims) -> tuple:
@@ -117,7 +151,7 @@ def act_spec(axes: Optional[MeshAxes], *dims) -> tuple:
     out = []
     for d in dims:
         if d == "dp":
-            out.append(axes.dp if len(axes.dp) > 1 else axes.dp[0])
+            out.append(dp_spec(axes))
         elif d == "tp":
             out.append(axes.tp)
         else:
@@ -265,3 +299,169 @@ def spec_leaves(specs) -> list:
     """The specs of a spec tree in the tree's flattening order (a spec is
     a tuple, which `flatten` would take apart)."""
     return [sh.spec for sh in flatten(named_shardings(specs, None))[0]]
+
+
+# ---------------------------------------------------------------------------
+# Serving placements (JAX `launch/dryrun.py`) and the cache's shards
+# ---------------------------------------------------------------------------
+
+
+def batch_divisible(batch: int, mesh, axes: MeshAxes) -> bool:
+    """Whether `batch` rows split evenly over the dp group of `mesh`
+    (JAX `launch/dryrun.py::build_cell`, `:101-105`)."""
+    dp_size = 1
+    for name in axes.dp:
+        dp_size *= mesh.size(mesh.mesh_dim_names.index(name))
+    return batch % dp_size == 0
+
+
+def batch_specs(batch_tree, dp, batch_divisible: bool):
+    """JAX `launch/dryrun.py::batch_specs` (`:51-57`): every input's
+    leading (batch) dim on `dp`, or replicated when it does not divide."""
+    def one(names, leaf):
+        if not batch_divisible:
+            return P()
+        return P(dp, *([None] * (leaf.ndim - 1)))
+
+    return _map_with_names(one, batch_tree)
+
+
+def cache_pspecs(cfg, cache_tree, dp, tp, batch_divisible: bool):
+    """JAX `launch/dryrun.py::cache_pspecs` (`:60-87`), rule for rule.
+    KV caches: [sites, B, S, Hkv, D] -> B on dp, S on tp (the
+    flash-decode partial softmax, `models.attention`); batch-1 cells
+    shard S over everything instead.  States (mamba/rwkv): heads on tp.
+    Leaves need only `.ndim`; "pos" (a Python int here) is replicated."""
+    def one(names, leaf):
+        last = names[-1] if names else ""
+        ndim = getattr(leaf, "ndim", 0)
+        if last in ("k", "v") and ndim == 5:
+            if batch_divisible:
+                return P(None, dp, tp, None, None)
+            allaxes = (dp if isinstance(dp, tuple) else (dp,)) + (tp,)
+            return P(None, None, allaxes, None, None)
+        if last == "ssm" and ndim >= 4:  # [G,A,B,H,N,P]
+            lead = ndim - 4
+            return P(*([None] * lead), None if not batch_divisible else dp, tp, None, None)
+        if last == "conv" and ndim >= 3:  # [G,A,B,K-1,convdim]
+            lead = ndim - 3
+            return P(*([None] * lead), None if not batch_divisible else dp, None, tp)
+        if last == "wkv" and ndim == 5:  # [L,B,H,P,P]
+            return P(None, dp if batch_divisible else None, tp, None, None)
+        if last in ("tm_x", "cm_x") and ndim == 3:  # [L,B,d]
+            return P(None, dp if batch_divisible else None, tp)
+        return P()
+
+    return _map_with_names(one, cache_tree)
+
+
+def zeros_on_mesh(tree, specs, mesh):
+    """Zeros in the shape and dtype of each tensor leaf of `tree` (a tree
+    on the "meta" device will do), as DTensors on `mesh` placed by the
+    matching spec; each rank allocates only its own shard."""
+    def make(x, spec):
+        if not isinstance(x, torch.Tensor):
+            return x
+        return dtensor_zeros(tuple(x.shape), dtype=x.dtype, device_mesh=mesh,
+                             placements=placements(spec, mesh))
+
+    flat, treedef = flatten(tree)
+    return treedef.unflatten([make(x, s) for x, s in zip(flat, spec_leaves(specs))])
+
+
+def shard_range(size: int, mesh, place, dim: int) -> Tuple[int, int]:
+    """(start, length) of this rank's rows of a tensor dim of `size` that
+    `place` splits (Shard(dim) on one or more mesh dims, the first
+    major), in the sizes DTensor gives its shards: `torch.chunk`'s, the
+    last ones shorter or empty when the dim does not divide."""
+    start = 0
+    for i, p in enumerate(place):
+        if p == Shard(dim):
+            step = -(-size // mesh.size(i))
+            lo = min(mesh.get_local_rank(i) * step, size)
+            start, size = start + lo, min(lo + step, size) - lo
+    return start, size
+
+
+def site(x: torch.Tensor, index) -> torch.Tensor:
+    """`x[index]` as a view that writes reach: `index` an int or a tuple of
+    ints into the leading dims of a stacked cache leaf.  For a DTensor
+    whose leading dims are not split, a DTensor over the same view of
+    its local shard, the remaining dims placed as in `x` (DTensor's own
+    indexing need not return a view)."""
+    if not isinstance(x, DTensor):
+        return x[index]
+    lead = len(index) if isinstance(index, tuple) else 1
+    place = []
+    for p in x.placements:
+        if isinstance(p, Shard) and p.dim < lead:
+            raise ValueError(f"site: dim {p.dim} of the stack is split ({x.placements})")
+        place.append(Shard(p.dim - lead) if isinstance(p, Shard) else p)
+    shape = x.shape[lead:]
+    return DTensor.from_local(x.to_local()[index], x.device_mesh, place, run_check=False,
+                              shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous: `to_local`'s backward
+    wraps the local gradient with the DTensor's contiguous strides, and
+    a later view then fails on a strided one (the GQA einsum's)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def on_rows_and_heads(fn, args, dims, out_dims, heads: int):
+    """`fn(*args)` for DTensor `args`, run on each rank's local tensors: a
+    local region for work that is independent across batch rows and
+    heads.  `dims[j]` is (batch dim, head dim) of `args[j]` (None where
+    it has none; `args[0]` has both), `out_dims` the same for each output
+    of `fn` (a tuple).
+    Per mesh dim, the batch stays split where `args[0]` splits its batch
+    dim, and so do the heads where it splits its head dim (one mesh dim
+    whose size divides `heads`), else the first other mesh dim whose size
+    divides `heads` splits them (a head dim of h * P elements splits on
+    head boundaries); the rest is replicated.  An input with no batch
+    (or no head) dim is whole on a mesh dim that splits the batch (the
+    heads), and its gradient there is a partial sum.  Returns DTensors."""
+    ref = args[0]
+    mesh = ref.device_mesh
+    rb, rh = dims[0]
+    plan = []
+    for i, p in enumerate(ref.placements):
+        if p == Shard(rb):
+            plan.append("batch")
+        elif p == Shard(rh) and "heads" not in plan and heads % mesh.size(i) == 0:
+            plan.append("heads")
+        else:
+            plan.append(None)
+    for i, k in enumerate(plan):
+        if k is None and "heads" not in plan and heads % mesh.size(i) == 0:
+            plan[i] = "heads"
+
+    def place(bd, hd, missing=Replicate()):
+        out = []
+        for k in plan:
+            d = bd if k == "batch" else hd if k == "heads" else None
+            out.append(Replicate() if k is None else Shard(d) if d is not None else missing)
+        return out
+
+    local = [_ContiguousGrad.apply(like(a, ref).redistribute(mesh, place(*d)).to_local(
+        grad_placements=place(*d, Partial()))) for a, d in zip(args, dims)]
+    outs = fn(*local)
+    wrapped = []
+    for o, (bd, hd) in zip(outs, out_dims):
+        shape = list(o.shape)
+        if bd is not None:
+            shape[bd] = ref.shape[rb]
+        if hd is not None:
+            shape[hd] *= math.prod(mesh.size(i) for i, k in enumerate(plan) if k == "heads")
+        wrapped.append(DTensor.from_local(o.contiguous(), mesh, place(bd, hd), run_check=False,
+                                          shape=torch.Size(shape),
+                                          stride=torch.empty(shape, device="meta").stride()))
+    return tuple(wrapped)

@@ -26,9 +26,10 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import _normal, rms_norm
-from repro_torch.models.sharding import like
+from repro_torch.models.sharding import like, on_rows_and_heads
 
 F32 = torch.float32
 
@@ -64,10 +65,18 @@ def _split_proj(p: dict, x: torch.Tensor, d_inner: int, d_state: int, n_heads: i
     return torch.split(x @ p["w_in"], [d_inner, d_inner, d_state, d_state, n_heads], dim=-1)
 
 
+def _pad_front(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x [B, S, ...] with `n` rows of zeros in front of dim 1: a `cat`,
+    since DTensor (torch 2.11) gives `F.pad`'s output malformed
+    placements."""
+    zeros = torch.zeros((x.shape[0], n) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
+    return torch.cat([like(zeros, x), x], dim=1)
+
+
 def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over [B, S, C] with kernel [K, C]."""
     K, S = w.shape[0], xBC.shape[1]
-    xp = F.pad(xBC, (0, 0, K - 1, 0))
+    xp = _pad_front(xBC, K - 1)
     out = sum(xp[:, i : i + S, :] * w[i][None, None, :] for i in range(K))
     return F.silu((out + b[None, None, :]).float()).to(xBC.dtype)
 
@@ -95,6 +104,34 @@ def _chunk_step(Hst, la_c, xd_c, B_c, C_c):
     return H_new, yin + yintra
 
 
+def _ssd_scan(la, xd, Bf, Cf, L: int):
+    """The chunked SSD scan from a zero state: (la [B, S, H], xd [B, S, H,
+    P], B, C [B, S, N]) -> (final state [B, H, N, P], y [B, S, H, P]).
+    Padded steps add no input (xd = 0) and decay by exp(0) = 1, so the
+    final state is the state at position S - 1 exactly."""
+    Bsz, S, H = la.shape
+    pad = (-S) % L
+    if pad:
+        la = F.pad(la, (0, 0, 0, pad))
+        xd = F.pad(xd, (0, 0, 0, 0, 0, pad))
+        Bf = F.pad(Bf, (0, 0, 0, pad))
+        Cf = F.pad(Cf, (0, 0, 0, pad))
+    Hst = torch.zeros((Bsz, H, Bf.shape[-1], xd.shape[-1]), dtype=F32, device=la.device)
+    ys = []
+    for c in range(0, S + pad, L):
+        Hst, y_c = _chunk_step(Hst, la[:, c : c + L], xd[:, c : c + L], Bf[:, c : c + L],
+                               Cf[:, c : c + L])
+        ys.append(y_c)
+    return Hst, torch.cat(ys, dim=1)[:, :S]
+
+
+def _ssm_step(ssm, a, dt, Bf, Cf, xh, D):
+    """One step of the recurrence: (state [B, H, N, P], decay a and dt
+    [B, H], B, C [B, N], x [B, H, P], D [H]) -> (new state, y [B, H, P])."""
+    hs = ssm * a[..., None, None] + torch.einsum("bh,bn,bhp->bhnp", dt, Bf, xh)
+    return hs, torch.einsum("bn,bhnp->bhp", Cf, hs) + xh * D[None, :, None]
+
+
 def apply_mamba2(p: dict, x: torch.Tensor, *, d_inner: int, d_state: int, head_dim: int,
                  chunk: int = 128, return_state: bool = False):
     """x: [B, S, d] -> [B, S, d] (training / prefill path).
@@ -106,7 +143,7 @@ def apply_mamba2(p: dict, x: torch.Tensor, *, d_inner: int, d_state: int, head_d
     Bsz, S, _ = x.shape
     dtype = x.dtype
     H = d_inner // head_dim
-    P, N = head_dim, d_state
+    P = head_dim
     z, xs, Bc, Cc, dt = _split_proj(p, x, d_inner, d_state, H)
     xBC_raw = torch.cat([xs, Bc, Cc], dim=-1)
     xBC = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"])
@@ -117,24 +154,15 @@ def apply_mamba2(p: dict, x: torch.Tensor, *, d_inner: int, d_state: int, head_d
     la = dt * A                                                # log decay per step
     xh = xs.reshape(Bsz, S, H, P).float()
     xd = xh * dt[..., None]                                    # dt-scaled input
-    Bf, Cf = Bc.float(), Cc.float()
-
-    # Padded steps add no input (xd = 0) and decay by exp(0) = 1, so the
-    # final state is the state at position S - 1 exactly.
     L = min(chunk, S)
-    pad = (-S) % L
-    if pad:
-        la = F.pad(la, (0, 0, 0, pad))
-        xd = F.pad(xd, (0, 0, 0, 0, 0, pad))
-        Bf = F.pad(Bf, (0, 0, 0, pad))
-        Cf = F.pad(Cf, (0, 0, 0, pad))
-    Hst = like(torch.zeros((Bsz, H, N, P), dtype=F32, device=x.device), x)
-    ys = []
-    for c in range(0, S + pad, L):
-        Hst, y_c = _chunk_step(Hst, la[:, c : c + L], xd[:, c : c + L], Bf[:, c : c + L],
-                               Cf[:, c : c + L])
-        ys.append(y_c)
-    y = torch.cat(ys, dim=1)[:, :S]
+    if isinstance(xd, DTensor):
+        # a local region: the scan's einsums flatten head-sharded
+        # operands, which DTensor (torch 2.11) refuses
+        Hst, y = on_rows_and_heads(lambda *a: _ssd_scan(*a, L),
+                                   (la, xd, Bc.float(), Cc.float()),
+                                   [(0, 2), (0, 2), (0, None), (0, None)], [(0, 1), (0, 2)], H)
+    else:
+        Hst, y = _ssd_scan(la, xd, Bc.float(), Cc.float(), L)
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(Bsz, S, d_inner).to(dtype)
     y = rms_norm(y * F.silu(z.float()).to(dtype), p["norm"])
@@ -144,7 +172,7 @@ def apply_mamba2(p: dict, x: torch.Tensor, *, d_inner: int, d_state: int, head_d
     K = p["conv_w"].shape[0]
     tail = xBC_raw[:, max(S - (K - 1), 0):]
     if S < K - 1:
-        tail = F.pad(tail, (0, 0, K - 1 - S, 0))
+        tail = _pad_front(tail, K - 1 - S)
     return out, {"ssm": Hst, "conv": tail}
 
 
@@ -179,9 +207,13 @@ def apply_mamba2_decode(p: dict, x: torch.Tensor, state: dict, *, d_inner: int,
     A = -torch.exp(p["A_log"])
     a = torch.exp(dt * A)                                      # [B, H]
     xh = xs.reshape(Bsz, H, P).float()
-    Bf, Cf = Bc.float(), Cc.float()
-    hs = state["ssm"] * a[..., None, None] + torch.einsum("bh,bn,bhp->bhnp", dt, Bf, xh)
-    y = torch.einsum("bn,bhnp->bhp", Cf, hs) + xh * p["D"][None, :, None]
+    step = (state["ssm"], a, dt, Bc.float(), Cc.float(), xh, p["D"])
+    if isinstance(xh, DTensor):
+        # a local region, as the scan of `apply_mamba2`
+        hs, y = on_rows_and_heads(_ssm_step, step, [(0, 1)] * 3 + [(0, None)] * 2
+                                  + [(0, 1), (None, 0)], [(0, 1), (0, 1)], H)
+    else:
+        hs, y = _ssm_step(*step)
     y = y.reshape(Bsz, 1, d_inner).to(dtype)
     y = rms_norm(y * F.silu(z.float()).to(dtype), p["norm"])
     return y @ p["w_out"], {"ssm": hs, "conv": new_conv}

@@ -39,6 +39,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -50,6 +51,7 @@ from repro_torch.models.attention import (
     attention_decode_stacked,
     chunked_attention,
     init_attention,
+    write_prompt_kv,
 )
 from repro_torch.models.layers import (
     apply_rope,
@@ -62,7 +64,19 @@ from repro_torch.models.layers import (
     logits as lm_logits,
     rms_norm,
 )
-from repro_torch.models.sharding import MeshAxes, act_spec, constrain, like
+from repro_torch.models.sharding import (
+    MeshAxes,
+    P,
+    act_spec,
+    active_mesh,
+    batch_divisible,
+    cache_pspecs,
+    constrain,
+    dp_spec,
+    like,
+    site,
+    zeros_on_mesh,
+)
 
 # the weights JAX casts to the compute dtype (`.astype(dtype)`) at their matmul
 _MATMUL = {"wq", "wk", "wv", "wo", "w_gate", "w_in", "w_out",
@@ -97,7 +111,8 @@ def cast_matmul(lp: dict, dtype) -> dict:
     return conv(lp)
 
 
-def _ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor, dispatch: str) -> torch.Tensor:
+def _ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor, dispatch: str,
+         axes: Optional[MeshAxes]) -> torch.Tensor:
     """The layer's SwiGLU, or its MoE as prefill and `decode_step` call it:
     drop-free (capacity factor n_experts) unless the config sets a
     serving capacity, `n_blocks` and `group_size` from the config, the
@@ -107,7 +122,7 @@ def _ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor, dispatch: str) -> torch.Ten
     y, _ = moe_lib.apply_moe(
         lp["moe"], h, top_k=cfg.top_k,
         capacity_factor=cfg.serve_capacity_factor or float(cfg.n_experts),
-        dtype=h.dtype, n_blocks=cfg.dispatch_blocks, dispatch=dispatch,
+        dtype=h.dtype, n_blocks=cfg.dispatch_blocks, axes=axes, dispatch=dispatch,
         group_size=cfg.dispatch_group,
     )
     return y
@@ -339,9 +354,28 @@ def _attention_prefill(cfg: ArchConfig, ap: dict, h: torch.Tensor,
 
 
 def _write(slots: dict, new: dict) -> None:
-    """Copy a layer's new state into its cache slots, in place."""
+    """Copy a layer's new state into its cache slots, in place.  A slot
+    on a sharded cache (`models.sharding.site`) is written on its local
+    shard, the new state first placed as the slot is: a local region,
+    since DTensor's `copy_` need not write through a view."""
     for k, a in slots.items():
-        a.copy_(new[k])
+        if isinstance(a, DTensor):
+            b = like(new[k], a).redistribute(a.device_mesh, a.placements)
+            a.to_local().copy_(b.to_local())
+        else:
+            a.copy_(new[k])
+
+
+def _slots(tree: dict, index) -> dict:
+    """One site's views of the stacked state leaves in `tree`."""
+    return {k: site(a, index) for k, a in tree.items()}
+
+
+def _logits_spec(axes: MeshAxes, batch: int) -> tuple:
+    """Where the serving logits [B, V] go: B on dp when it divides, V on
+    tp (JAX dryrun's prefill and decode `out_shardings`)."""
+    div = batch_divisible(batch, active_mesh(), axes)
+    return P(dp_spec(axes) if div else None, axes.tp)
 
 
 def prefill(
@@ -350,17 +384,27 @@ def prefill(
     batch: dict,
     max_len: int,
     *,
+    axes: Optional[MeshAxes] = None,
     dtype=torch.bfloat16,
 ):
     """Process the prompt; returns (last-token logits [B, V] float32,
     the `init_cache` tree filled: K/V in `dtype` up to S, the hybrid's
     Mamba2 states and the RWKV states exact at the last token, "pos": S).
-    The stub frontends take `batch["embeds"]` [B, S, d] where it is given."""
+    The stub frontends take `batch["embeds"]` [B, S, d] where it is given.
+
+    With `axes`, the parameters are DTensors on the current mesh
+    (`param_specs` + `shard_tree`) and the batch is plain or placed by
+    `batch_specs`; the inputs are constrained as JAX's (`:492`), the MoE
+    layers take `axes`, the cache is made placed by `cache_pspecs`
+    (`init_cache(axes=...)`) and written on its shards, and the logits
+    come out placed as JAX's dry run places prefill's: B on dp (when it
+    divides), V on tp.  Their values are the unsharded ones."""
     x = _embed_inputs(cfg, params, batch, dtype)
+    x = constrain(x, axes, act_spec(axes, "dp", None, None))
     B, S = x.shape[:2]
     dev = x.device
     positions = torch.arange(S, device=dev)[None, :]
-    cache = init_cache(cfg, B, max_len, dtype, dev)
+    cache = init_cache(cfg, B, max_len, dtype, dev, axes=axes)
     if cfg.family in ATTENTION_FAMILIES:
         for li, window in enumerate(window_array(cfg)):
             lp = layer_params(params, li)
@@ -369,12 +413,12 @@ def prefill(
             if cfg.post_norm:
                 h = rms_norm(h, lp["ln1_post"], cfg.norm_eps)
             x = x + h
-            h = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.dispatch_mode)
+            h = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.dispatch_mode, axes)
             if cfg.post_norm:
                 h = rms_norm(h, lp["ln2_post"], cfg.norm_eps)
             x = x + h
-            cache["k"][li, :, :S] = k
-            cache["v"][li, :, :S] = v
+            write_prompt_kv(cache["k"], li, k)
+            write_prompt_kv(cache["v"], li, v)
     elif cfg.family == "hybrid":
         shared = params["shared_attn"]
         for g in range(cfg.n_layers // cfg.attn_every):
@@ -384,28 +428,30 @@ def prefill(
                 h, st = ssm_lib.apply_mamba2(lp["mamba"], rms_norm(x, lp["ln"], cfg.norm_eps),
                                              return_state=True, **_mamba_kwargs(cfg))
                 x = x + h
-                _write({k: a[g, i] for k, a in cache["mamba"].items()}, st)
+                _write(_slots(cache["mamba"], (g, i)), st)
             h, k, v = _attention_prefill(cfg, shared["attn"],
                                          rms_norm(x, shared["ln"], cfg.norm_eps), positions,
                                          None)
             x = x + h
-            cache["k"][g, :, :S] = k
-            cache["v"][g, :, :S] = v
+            write_prompt_kv(cache["k"], g, k)
+            write_prompt_kv(cache["v"], g, v)
     elif cfg.family == "ssm":
         for li in range(cfg.n_layers):
             x, st = rwkv_lib.apply_rwkv6(layer_params(params, li), x,
                                          head_dim=cfg.rwkv_head_dim)
-            _write({k: a[li] for k, a in cache["rwkv"].items()}, st)
+            _write(_slots(cache["rwkv"], li), st)
     else:
         raise ValueError(cfg.family)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     lg = lm_logits(h[:, -1], table, cfg.final_softcap or None)
+    if axes is not None:
+        lg = constrain(lg, axes, _logits_spec(axes, B))
     return lg, dict(cache, pos=S)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               device="cuda") -> dict:
+               device="cuda", *, axes: Optional[MeshAxes] = None) -> dict:
     """Dense decode cache, zeros; "pos" (a Python int) is the current
     context length.  Attention families: "k", "v" [L, batch, max_len, Hkv,
     D] in `dtype`.  Hybrid: "k", "v" with one site per group [G, ...] and
@@ -413,7 +459,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     attn_every, batch, d_conv - 1, conv_dim] in `dtype`}.  Ssm: "rwkv"
     {"tm_x", "cm_x" [L, batch, d], "wkv" [L, batch, H, P, P]}, float32.
     Every site has its own memory (JAX broadcasts one zero state; the
-    port writes states in place)."""
+    port writes states in place).  With `axes`, every leaf is a DTensor
+    on the current mesh placed by `models.sharding.cache_pspecs` (`B`
+    divisible over dp or not, as the mesh says), each rank holding only
+    its shard (`device` is then the mesh's)."""
+    if axes is not None:
+        mesh = active_mesh()
+        shapes = init_cache(cfg, batch, max_len, dtype, "meta")
+        specs = cache_pspecs(cfg, shapes, dp_spec(axes), axes.tp,
+                             batch_divisible(batch, mesh, axes))
+        return zeros_on_mesh(shapes, specs, mesh)
+
     def kv(sites):
         shape = (sites, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -439,14 +495,24 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor, *,
-                dtype=torch.bfloat16):
+                axes: Optional[MeshAxes] = None, dtype=torch.bfloat16):
     """One decode step over the dense cache.  tokens: [B] -> (logits [B, V]
     float32, cache with "pos" + 1).  The new token's K/V and every layer's
     new Mamba2 / RWKV state are written into the cache in place (the torch
     form of the JAX scan's carried cache).  MoE layers take the scatter
-    dispatch always."""
+    dispatch always.
+
+    With `axes`, the parameters are DTensors on the current mesh and the
+    cache is placed by `models.sharding.cache_pspecs` (as `prefill` or
+    `init_cache(axes=...)` give it; JAX's `in_shardings`).  The token's
+    embedding and the logits are constrained as JAX's (`:328`, `:459`,
+    the logits then placed as the dry run's `out_shardings`), the MoE
+    layers take `axes`, and every cache leaf is written on its local
+    shard, so it leaves the step in the placements it came in with (JAX's
+    donated cache).  "pos" stays a Python int."""
     pos = cache["pos"]
     x = embed(params["embed"], tokens[:, None], dtype, scale=cfg.embed_scale)
+    x = constrain(x, axes, act_spec(axes, "dp", None, None))
     if cfg.family in ATTENTION_FAMILIES:
         for li, window in enumerate(window_array(cfg)):
             lp = layer_params(params, li)
@@ -456,7 +522,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor
             if cfg.post_norm:
                 h = rms_norm(h, lp["ln1_post"], cfg.norm_eps)
             x = x + h
-            h = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), "scatter")
+            h = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), "scatter", axes)
             if cfg.post_norm:
                 h = rms_norm(h, lp["ln2_post"], cfg.norm_eps)
             x = x + h
@@ -465,7 +531,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor
         for g in range(cfg.n_layers // cfg.attn_every):
             for i in range(cfg.attn_every):
                 lp = layer_params(params, (g, i), "groups")
-                slots = {k: a[g, i] for k, a in cache["mamba"].items()}
+                slots = _slots(cache["mamba"], (g, i))
                 h, st = ssm_lib.apply_mamba2_decode(
                     lp["mamba"], rms_norm(x, lp["ln"], cfg.norm_eps), slots,
                     **_mamba_kwargs(cfg))
@@ -476,7 +542,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor
                                              pos, window=None, **_attn_kwargs(cfg))
     elif cfg.family == "ssm":
         for li in range(cfg.n_layers):
-            slots = {k: a[li] for k, a in cache["rwkv"].items()}
+            slots = _slots(cache["rwkv"], li)
             x, st = rwkv_lib.apply_rwkv6(layer_params(params, li), x,
                                          head_dim=cfg.rwkv_head_dim, state=slots)
             _write(slots, st)
@@ -485,4 +551,6 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     lg = lm_logits(h[:, 0], table, cfg.final_softcap or None)
+    if axes is not None:
+        lg = constrain(lg, axes, _logits_spec(axes, tokens.shape[0]))
     return lg, dict(cache, pos=pos + 1)
