@@ -206,7 +206,26 @@ Phases (any failure fails the run, exit code 1):
      cache leaves within 1e-5 of their max, the difference reported);
      B=1 on the cache rule's branch for a batch that does not divide
      over dp;
-  13. flash: with its launch count at 0, the differentiable
+  13. dryrun: the dry run of the production meshes, no kernel of the
+     port on its path: (a) `python -m repro_torch.launch.dryrun --device
+     cuda` in five processes side by side, one cell each, each a fake
+     world of 256 or 512 ranks with fake CUDA tensors: stablelm-3b train_4k,
+     prefill_32k and decode_32k on 16x16, phi3.5-moe decode_32k with
+     `--variant opt` and rwkv6-7b long_500k on 2x16x16; every cell ok,
+     nothing allocated on the card but the 1-element tensor with which
+     torch's FakeTensorMode starts the CUDA context once per process
+     (each allocation reported with the function that made it); per
+     cell the peak bytes per device (torch's `MemTracker` over the fake
+     tensors) against 80 GB, the dominant roofline term and its
+     compute / memory / collective ms (records in
+     `chiprun_out/dryrun_torch/`); the rows of a dim split over ('pod',
+     'data') at sampled ranks equal to `sharding.shard_range`'s; (b) the
+     counter (`roofline.op_count`) on stablelm-3b's unsharded bf16
+     `decode_step` (B=8, cache 1024, at position 512) on the card
+     against the same call on fake CPU tensors (flops, bytes, op counts;
+     the ops that differ named), `memory_s` and `compute_s` beside the
+     step's measured ms;
+  14. flash: with its launch count at 0, the differentiable
      `ops.flash_attention` (kernel 5 forward) at full attention width in
      bf16, B=1: stablelm-3b (32/32 heads, D=80, S=4096, causal),
      phi3-medium-14b (40/10, D=128, S=4096, causal), gemma2-27b global
@@ -3862,7 +3881,221 @@ def phase_dist(torch, dev, report):
 
 
 # ---------------------------------------------------------------------------
-# Phase 13: flash attention (kernel 5) through ops.flash_attention
+# Phase 13: the dry run on a fake 256/512-rank world, the counter on the card
+# ---------------------------------------------------------------------------
+
+# (arch, shape, mesh, variant): one dry-run process each, side by side
+DRYRUN_CELLS = (
+    ("stablelm-3b", "train_4k", "single", "baseline"),
+    ("stablelm-3b", "prefill_32k", "single", "baseline"),
+    ("stablelm-3b", "decode_32k", "single", "baseline"),
+    ("phi3.5-moe-42b-a6.6b", "decode_32k", "multi", "opt"),
+    ("rwkv6-7b", "long_500k", "multi", "baseline"),
+)
+DRYRUN_TIMEOUT = 420    # seconds for the processes together
+# part (b): phase dist (e)'s unsharded decode step (B=8, cache 1024) at 512
+DRYRUN_COUNT = dict(batch=8, max_len=1024, pos=512, reps=5, warm=2)
+
+NEST_CHECK = """
+import json, sys
+import torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models.sharding import shard_range
+rows = []
+for rank in (0, 1, 15, 16, 17, 255, 256, 300, 511):
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=512)
+    mesh = make_production_mesh(multi_pod=True, device_type=sys.argv[1])
+    place = [Shard(0), Shard(0), Replicate()]
+    for size in (64, 50, 20):
+        shape, offset = compute_local_shape_and_global_offset((size, 8), mesh, place)
+        rows.append([rank, size, offset[0], shape[0], *shard_range(size, mesh, place, 0)])
+    dist.destroy_process_group()
+print(json.dumps(rows))
+"""
+
+
+def dryrun_processes(torch, out_dir):
+    """(a): the dry-run processes side by side, each on the card's torch
+    with fake CUDA tensors; their lines (the records go to `out_dir`)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
+    procs = []
+    for arch, shape, mesh, variant in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device", "cuda",
+               "--arch", arch, "--shape", shape, "--mesh", mesh, "--variant", variant,
+               "--out", str(out_dir)]
+        procs.append(subprocess.Popen(cmd, env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(deadline - time.perf_counter(), 1)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    runs = []
+    for (arch, shape, mesh, variant), p, (stdout, stderr) in zip(DRYRUN_CELLS, procs, outs):
+        lines = stdout.splitlines()
+        alloc = [int(line.split("=")[1]) for line in lines
+                 if line.startswith("cuda max_memory_allocated=")]
+        made = [ln for ln in lines if ln.startswith("cuda allocation:")]
+        runs.append(dict(arch=arch, shape=shape, mesh=mesh, variant=variant, rc=p.returncode,
+                         lines=[ln for ln in lines if ln.startswith(("[", "cuda "))],
+                         cuda_allocated=alloc[0] if alloc else None,
+                         # allocations other than FakeTensorMode's context start
+                         by_the_port=[ln for ln in made if " by init_gpu_context at " not in ln]))
+        for line in runs[-1]["lines"]:
+            log(f"[dryrun] {line}")
+        if p.returncode != 0:
+            log(f"[dryrun] {arch} {mesh} {variant}: exit {p.returncode}\n{stderr[-6000:]}")
+    return runs
+
+
+def dryrun_records(out_dir):
+    """The records the processes wrote, cell by cell."""
+    cells = []
+    for path in sorted(out_dir.glob("*.json")):
+        r = json.loads(path.read_text())
+        if r.get("status") != "ok":
+            cells.append(dict(arch=r["arch"], shape=r["shape"], mesh=r["mesh"],
+                              status=r["status"], reason=r.get("reason", r.get("error"))))
+            continue
+        t = r["roofline"]
+        gb = r["memory_analysis"]["peak_bytes_per_device"] / 1e9
+        cells.append(dict(
+            arch=r["arch"], shape=r["shape"], mesh=r["mesh"], variant=r["variant"],
+            status="ok", gb_per_device=gb, of_gb=r["hw"]["hbm_bytes"] / 1e9,
+            dominant=t["dominant"], compute_ms=t["compute_s"] * 1e3,
+            memory_ms=t["memory_s"] * 1e3, collective_ms=t["collective_s"] * 1e3,
+            per_collective=r["op_count_per_device"]["per_collective"],
+            build_s=r["build_s"], count_s=r["count_s"],
+            cuda_bytes=r["cuda_bytes_allocated"]))
+        c = cells[-1]
+        log(f"[dryrun] {c['arch']} {c['shape']} {c['mesh']} {c['variant']}: ok, "
+            f"{gb:.2f} GB per device of {c['of_gb']:.0f}, dominant {c['dominant']}, "
+            f"c/m/coll {c['compute_ms']:.1f}/{c['memory_ms']:.1f}/"
+            f"{c['collective_ms']:.1f} ms, counted in {c['count_s']} s, "
+            f"{c['cuda_bytes']} bytes allocated on the card")
+    return cells
+
+
+def nested_split(torch, device_type):
+    """Rows of a dim split over ('pod', 'data') of the (2, 16, 16) mesh on
+    this torch: DTensor's offset and length for sampled ranks of a fake
+    world of 512 against `sharding.shard_range`'s nested chunks, for
+    dims that divide (64) and that do not (50, 20: some shards short or
+    empty)."""
+    r = subprocess.run([sys.executable, "-c", NEST_CHECK, device_type], capture_output=True,
+                       text=True, timeout=300, cwd=str(ROOT),
+                       env=dict(os.environ, PYTHONPATH=str(SRC)))
+    if r.returncode != 0:
+        raise RuntimeError(f"nested split check: exit {r.returncode}\n{r.stderr[-4000:]}")
+    rows = json.loads(r.stdout.strip().splitlines()[-1])
+    # [rank, size, offset, length] by DTensor, then by shard_range; an
+    # empty shard's offset is immaterial
+    return dict(rows=rows, equal=all(row[3] == row[5] and (row[3] == 0 or row[2] == row[4])
+                                     for row in rows))
+
+
+def dryrun_counter(torch, dev):
+    """(b): the counter on stablelm-3b's unsharded bf16 `decode_step` on
+    the card, against the same call counted on fake CPU tensors, beside
+    the step's measured ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import fake_tensors
+    from repro_torch.models.transformer import decode_step, init_cache, init_params
+    from repro_torch.roofline.op_count import HW_H100, OpCounter, roofline_terms
+
+    r = DRYRUN_COUNT
+    cfg = get_config(TRAIN_ARCH)
+    bf16 = torch.bfloat16
+
+    def inputs(device, gen):
+        params = init_params(cfg, gen, device=device, dtype=bf16)
+        cache = init_cache(cfg, r["batch"], r["max_len"], bf16, device)
+        cache["pos"] = r["pos"]
+        return params, cache, torch.zeros(r["batch"], dtype=torch.long, device=device)
+
+    def count(args):
+        counter = OpCounter()
+        with counter:
+            decode_step(cfg, *args, dtype=bf16)
+        return counter
+
+    params, cache, tokens = inputs(dev, torch.Generator(device=dev).manual_seed(0))
+    card = count((params, cache, tokens))
+    with fake_tensors():
+        fake = count(inputs("cpu", torch.Generator().manual_seed(0)))
+    step_ms = []
+    for i in range(r["warm"] + r["reps"]):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        decode_step(cfg, params, cache, tokens, dtype=bf16)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if i >= r["warm"]:
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+    got, want = card.result(), fake.result()
+    differ = {op: (card.by_op.get(op), fake.by_op.get(op))
+              for op in set(card.by_op) | set(fake.by_op)
+              if card.by_op.get(op) != fake.by_op.get(op)}
+    terms = roofline_terms(got, HW_H100)
+    out = dict(card=got, fake_cpu=want, differ=differ,
+               equal={k: got[k] == want[k] for k in ("flops", "bytes", "layout_bytes", "n_ops")},
+               roofline=terms, step_ms=step_ms)
+    log(f"[dryrun] (b) stablelm-3b decode_step B={r['batch']} at {r['pos']} on the card: "
+        f"{got['flops']:.4e} flops, {got['bytes']:.4e} bytes, {got['layout_bytes']:.4e} "
+        f"layout bytes, {got['n_ops']} ops; fake CPU {want['flops']:.4e} / "
+        f"{want['bytes']:.4e} / {want['layout_bytes']:.4e} / {want['n_ops']}; equal "
+        f"{out['equal']}; differing ops {sorted(differ)}")
+    log(f"[dryrun] (b) memory_s {terms['memory_s'] * 1e3:.3f} ms, compute_s "
+        f"{terms['compute_s'] * 1e3:.3f} ms; measured "
+        f"{', '.join(f'{t:.3f}' for t in step_ms)} ms per step")
+    del params, cache
+    return out
+
+
+def phase_dryrun(torch, dev, report):
+    """The dry run of the production meshes on this card's torch: (a) the
+    cells of `DRYRUN_CELLS`, one subprocess each (`python -m
+    repro_torch.launch.dryrun --device cuda`: a fake world of 256 or 512
+    ranks, fake CUDA tensors, nothing allocated on the card); the nested
+    dp split of the multi-pod mesh against `sharding.shard_range`; (b)
+    the counter on the card against fake CPU tensors."""
+    out_dir = ROOT / "chiprun_out" / "dryrun_torch"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out = report["dryrun"] = {"card": report.get("card")}
+    t = time.perf_counter()
+    out["runs"] = dryrun_processes(torch, out_dir)
+    out["cells"] = dryrun_records(out_dir)
+    out["a_s"] = time.perf_counter() - t
+    out["nested"] = nested_split(torch, "cuda")
+    log(f"[dryrun] nested ('pod', 'data') split equals shard_range at every sampled rank: "
+        f"{out['nested']['equal']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["counter"] = dryrun_counter(torch, dev)
+    bad = [r for r in out["runs"]
+           if r["rc"] != 0 or r["cuda_allocated"] is None or r["by_the_port"]]
+    ok = [c for c in out["cells"] if c["status"] == "ok"]
+    if bad or len(ok) != len(DRYRUN_CELLS):
+        raise RuntimeError(f"dry run: {len(ok)} cells ok of {len(DRYRUN_CELLS)}; failed processes, "
+                           f"or allocations on the card besides FakeTensorMode's: "
+                           f"{[(r['arch'], r['rc'], r['by_the_port']) for r in bad]}")
+    if not out["nested"]["equal"]:
+        raise RuntimeError(f"nested split differs from shard_range: {out['nested']['rows']}")
+    if not all(math.isfinite(x) and x > 0 for x in
+               (out["counter"]["card"]["flops"], out["counter"]["card"]["bytes"])):
+        raise RuntimeError("the counter gave no work for the card's decode step")
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: flash attention (kernel 5) through ops.flash_attention
 # ---------------------------------------------------------------------------
 
 FLASH_S = 4096         # stablelm-3b and phi3-medium rows
@@ -4099,6 +4332,7 @@ def main(argv) -> int:
         ("train", lambda: phase_train(torch, dev, report)),
         ("ssm", lambda: phase_ssm(torch, dev, report)),
         ("dist", lambda: phase_dist(torch, dev, report)),
+        ("dryrun", lambda: phase_dryrun(torch, dev, report)),
         ("flash", lambda: phase_flash(torch, dev, report, state)),
     ]
     for pname, fn in phases:

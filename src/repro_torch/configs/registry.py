@@ -1,13 +1,22 @@
-"""Architecture registry: `get_config(name)` resolves any assigned
-architecture.  The JAX package's dry-run input specs are not part of the
-port (they build `jax.ShapeDtypeStruct`s)."""
+"""Architecture registry + dry-run input specs.
+
+`get_config(name)` resolves any assigned architecture (`--arch <id>`);
+`input_specs(cfg, shape)` and `cache_specs(cfg, shape)` build the
+stand-ins for every model input of an (arch x shape) dry-run cell, the
+counterparts of JAX's `jax.ShapeDtypeStruct` trees: tensors on the
+"meta" device (shape and dtype, no storage), or, under a
+`FakeTensorMode`, fake tensors of the device the caller names.  Nothing
+is allocated either way.
+"""
 
 from __future__ import annotations
 
 import importlib
 from typing import Dict
 
-from repro_torch.configs.base import ArchConfig
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 
 _MODULES = {
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
@@ -34,3 +43,47 @@ def get_config(name: str) -> ArchConfig:
 
 def all_configs() -> Dict[str, ArchConfig]:
     return {n: get_config(n) for n in ARCH_NAMES}
+
+
+# ---------------------------------------------------------------------------
+# Dry-run input specs (meta or fake tensors only: nothing is allocated)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec, dtype=torch.bfloat16,
+                device="meta") -> dict:
+    """Model inputs for one dry-run cell.
+
+    train:   {tokens|embeds, labels}
+    prefill: {tokens|embeds}
+    decode:  {tokens [B]} (the KV cache is built by cache_specs below)
+    """
+    B, S = shape.global_batch, shape.seq_len
+
+    def f(dims, dt):
+        return torch.empty(dims, dtype=dt, device=device)
+
+    if shape.kind == "train":
+        batch = {"labels": f((B, S), torch.int32)}
+        if cfg.frontend != "none":
+            batch["embeds"] = f((B, S, cfg.d_model), dtype)
+        else:
+            batch["tokens"] = f((B, S), torch.int32)
+        return batch
+    if shape.kind == "prefill":
+        if cfg.frontend != "none":
+            return {"embeds": f((B, S, cfg.d_model), dtype)}
+        return {"tokens": f((B, S), torch.int32)}
+    if shape.kind == "decode":
+        return {"tokens": f((B,), torch.int32)}
+    raise ValueError(shape.kind)
+
+
+def cache_specs(cfg: ArchConfig, shape: ShapeSpec, dtype=torch.bfloat16,
+                device="meta") -> dict:
+    """The decode cache of a shape cell, as `models.transformer.init_cache`
+    builds it, on `device` ("pos" is the Python int 0, where JAX's is an
+    int32 scalar)."""
+    from repro_torch.models.transformer import init_cache
+
+    return init_cache(cfg, shape.global_batch, shape.seq_len, dtype, device)

@@ -40,18 +40,21 @@ def use_mesh(mesh):
         sharding.set_current_mesh(prev)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """(16,16) data x model single pod; (2,16,16) pod x data x model."""
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
+    """(16,16) data x model single pod; (2,16,16) pod x data x model.
+    `device_type` overrides the group's ("cuda" or "cpu": the dry run's
+    fake group serves either)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return init_device_mesh(_device_type(), shape, mesh_dim_names=axes)
+    return init_device_mesh(device_type or _device_type(), shape, mesh_dim_names=axes)
 
 
 def dp_axes(multi_pod: bool) -> tuple:
     return ("pod", "data") if multi_pod else ("data",)
 
 
-def make_test_mesh(shape=(2, 2), axes=("data", "model")):
+def make_test_mesh(shape=(2, 2), axes=("data", "model"), device_type=None):
     """A small mesh over the world (its size must be the product of
     `shape`)."""
-    return init_device_mesh(_device_type(), tuple(shape), mesh_dim_names=tuple(axes))
+    return init_device_mesh(device_type or _device_type(), tuple(shape),
+                            mesh_dim_names=tuple(axes))

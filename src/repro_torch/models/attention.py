@@ -17,7 +17,8 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.layers import _normal, apply_rope
-from repro_torch.models.sharding import like, on_rows_and_heads, shard_range
+from repro_torch.models.sharding import (like, merge_heads, on_rows_and_heads, shard_range,
+                                         split_heads, sum_partials)
 
 NEG_INF = -1e30
 
@@ -237,25 +238,25 @@ def attention_block(
 ) -> torch.Tensor:
     """Full GQA block (projections + RoPE + chunked attention), the
     weights in x's dtype.  x: [B, S, d] -> [B, S, d]."""
-    B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim)
-    k = (x @ p["wk"]).reshape(B, S, n_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(B, S, n_kv_heads, head_dim)
+    S = x.shape[1]
+    q = split_heads(x @ p["wq"], n_heads, head_dim)
+    k = split_heads(x @ p["wk"], n_kv_heads, head_dim)
+    v = split_heads(x @ p["wv"], n_kv_heads, head_dim)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     out = chunked_attention(q, k, v, causal=causal, window=window, softcap=softcap,
                             chunk=chunk)
-    return out.reshape(B, S, n_heads * head_dim) @ p["wo"]
+    return sum_partials(merge_heads(out) @ p["wo"])
 
 
 def _decode_qkv(p, x, pos, n_heads, n_kv_heads, head_dim, rope_theta):
     """The new token's q, k, v [B, 1, H, D] at position `pos`, RoPE'd."""
     B = x.shape[0]
-    q = (x @ p["wq"]).reshape(B, 1, n_heads, head_dim)
-    k = (x @ p["wk"]).reshape(B, 1, n_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(B, 1, n_kv_heads, head_dim)
+    q = split_heads(x @ p["wq"], n_heads, head_dim)
+    k = split_heads(x @ p["wk"], n_kv_heads, head_dim)
+    v = split_heads(x @ p["wv"], n_kv_heads, head_dim)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     return apply_rope(q, positions, rope_theta), apply_rope(k, positions, rope_theta), v
 
@@ -314,4 +315,4 @@ def attention_decode_stacked(
     B = x.shape[0]
     q, k, v = _decode_qkv(p, x, pos, n_heads, n_kv_heads, head_dim, rope_theta)
     out = _decode_on_shards(q, k, v, k_all, v_all, layer, pos, window=window, softcap=softcap)
-    return out.reshape(B, 1, n_heads * head_dim) @ p["wo"]
+    return sum_partials(out.reshape(B, 1, n_heads * head_dim) @ p["wo"])

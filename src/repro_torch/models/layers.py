@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.models.sharding import like
+from repro_torch.models.sharding import like, sum_partials
 
 F32 = torch.float32
 
@@ -69,7 +69,7 @@ def apply_swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     g = x @ p["w_gate"]
     h = x @ p["w_in"]
     act = torch.nn.functional.silu(g.float()).to(x.dtype) * h
-    return act @ p["w_out"]
+    return sum_partials(act @ p["w_out"])
 
 
 def init_gelu_mlp(gen: torch.Generator, d: int, ff: int, device="cuda") -> dict:

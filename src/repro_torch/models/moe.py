@@ -15,8 +15,9 @@ d] buffer on the expert dim over the model axis, the einsum path's
 input and the parameters are DTensors.  The scatter path then routes,
 places and combines on local tensors (`_apply_moe_sharded`: each rank
 fills its own experts' buffer shard) and runs the expert FFN on
-DTensors; the einsum path runs on DTensors throughout, its constants
-(`arange`s, the aux loss's counts) replicated DTensors beside them.
+DTensors.  The einsum path is a local region throughout
+(`_apply_moe_einsum_sharded`: each rank routes its own groups and runs
+its own experts).
 
 Everything here is plain tensor code with shapes fixed by the inputs: no
 host sync and no data-dependent shape, so the layer runs inside a
@@ -35,6 +36,7 @@ captured CUDA graph.  Three places differ from a literal translation:
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -62,11 +64,10 @@ def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     return (idx[..., None] == like(torch.arange(n, device=idx.device), idx)).to(dtype)
 
 
-def _route(router: torch.Tensor, x: torch.Tensor, top_k: int):
+def _gates(router: torch.Tensor, x: torch.Tensor, top_k: int):
     """Router logits, probabilities, renormalised top-k gates and experts
-    (descending, lower index first among equal probabilities), and the
-    aux loss over every token of `x` [..., d]."""
-    E = router.shape[1]
+    (descending, lower index first among equal probabilities) of the
+    tokens of `x` [..., d]."""
     logits = x.float() @ router.float()                   # [..., E]
     probs = torch.softmax(logits, dim=-1)
     left = probs
@@ -78,7 +79,14 @@ def _route(router: torch.Tensor, x: torch.Tensor, top_k: int):
     expert_idx = torch.stack(idx, dim=-1)                 # [..., K]
     gate_vals = probs.gather(-1, expert_idx)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return logits, probs, gate_vals, expert_idx
 
+
+def _route(router: torch.Tensor, x: torch.Tensor, top_k: int):
+    """`_gates`' gates and experts, and the aux loss over every token of
+    `x` [..., d]."""
+    E = router.shape[1]
+    logits, probs, gate_vals, expert_idx = _gates(router, x, top_k)
     T = probs.numel() // E
     me = probs.reshape(T, E).mean(dim=0)
     first = expert_idx[..., 0].reshape(T)
@@ -236,30 +244,109 @@ def _apply_moe_einsum(
     while T % G:
         G -= 1
     Sg = T // G
+    if axes is not None:
+        return _apply_moe_einsum_sharded(p, x, top_k=top_k, capacity_factor=capacity_factor,
+                                         dtype=dtype, axes=axes, G=G)
     xg = x.reshape(G, Sg, d)
     gate_vals, expert_idx, aux = _route(p["router"], xg, top_k)      # [G, Sg, K]
+    oh, pos_oh, keep = _einsum_slots(expert_idx, E, top_k, capacity_factor, dtype)
+    disp = torch.einsum("gkse,gksc->gsec", oh.to(dtype), pos_oh)     # [G, Sg, E, C]
+    buf = torch.einsum("gsec,gsd->gecd", disp, xg.to(dtype))
+    out_e = _swiglu_experts(p, buf, dtype)                           # [G, E, C, d]
+    comb = torch.einsum("gkse,gksc,gks->gsec", oh.float(), pos_oh.float(),
+                        gate_vals.transpose(1, 2) * keep).to(dtype)
+    y = torch.einsum("gsec,gecd->gsd", comb, out_e)
+    return y.reshape(B, S, d).to(x.dtype), aux
 
+
+def _einsum_slots(expert_idx: torch.Tensor, E: int, top_k: int, capacity_factor: float,
+                  dtype):
+    """Slot-major one-hots of the routed pairs of each group, from
+    `expert_idx` [G, Sg, K]: (experts [G, K, Sg, E] int32, slots
+    [G, K, Sg, C] in `dtype`, keep [G, K, Sg])."""
+    Gl, Sg = expert_idx.shape[:2]
     C = max(int(capacity_factor * Sg * top_k / E), 1)
     e_sm = expert_idx.transpose(1, 2)                                # [G, K, Sg]
     oh = _one_hot(e_sm, E, torch.int32)                              # [G, K, Sg, E]
-    ohf = oh.reshape(G, top_k * Sg, E)
-    pos = ((torch.cumsum(ohf, dim=1) - 1) * ohf).sum(-1).reshape(G, top_k, Sg)
+    ohf = oh.reshape(Gl, top_k * Sg, E)
+    pos = ((torch.cumsum(ohf, dim=1) - 1) * ohf).sum(-1).reshape(Gl, top_k, Sg)
     keep = pos < C
     # slot C is out of range: dropped tokens get all-zero rows
-    pos_oh = _one_hot(torch.where(keep, pos, C), C, dtype)           # [G, K, Sg, C]
+    return oh, _one_hot(torch.where(keep, pos, C), C, dtype), keep
 
-    disp = torch.einsum("gkse,gksc->gsec", oh.to(dtype), pos_oh)     # [G, Sg, E, C]
-    buf = torch.einsum("gsec,gsd->gecd", disp, xg.to(dtype))
-    buf = constrain(buf, axes, act_spec(axes, "dp", "tp", None, None))
-    out_e = _swiglu_experts(p, buf, dtype)                           # [G, E, C, d]
 
-    gates_sm = gate_vals.transpose(1, 2)                             # [G, K, Sg]
+def _apply_moe_einsum_sharded(p: dict, x: DTensor, *, top_k: int, capacity_factor: float,
+                              dtype, axes: MeshAxes, G: int) -> Tuple[DTensor, DTensor]:
+    """The einsum path on DTensors, as JAX's constraint places its buffer:
+    the G groups over dp (when each dp shard's batch rows are whole
+    groups: G and B divide over dp; else every rank takes all G), the
+    experts over tp.  A local region: with fewer groups than dp shards,
+    DTensor's sharding propagation of the combine einsum `gsec,gecd->gsd`
+    on the multi-pod mesh did not end (torch 2.13, a (2, 1, 2) mesh).
+
+    Each rank routes its groups' tokens, builds the one-hots of its own
+    experts and their buffer shard, runs its experts' FFN over it with
+    their weights gathered over dp (FSDP's gather; DTensor's propagation
+    of the 4-D by 3-D matmul on a 3-D mesh did not end either), and
+    combines its experts' outputs, a partial sum over tp.  Gradients:
+    routing's are whole on each tp rank (the gates' gradient, a partial
+    sum over the experts, is summed over tp first), the dispatch's input
+    gradient is a partial sum over tp; over dp each rank's rows are its
+    own, and the weights' and the router's gradients are partial sums
+    when the groups are split.  The aux loss sums its per-expert sums
+    over dp."""
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    T, E = B * S, p["router"].shape[1]
+    names = mesh.mesh_dim_names
+    dp = [names.index(a) for a in axes.dp]
+    tp = names.index(axes.tp)
+    dp_size = math.prod(mesh.size(i) for i in dp)
+    split = G % dp_size == 0 and B % dp_size == 0   # each rank's rows are whole groups
+    e_split = E % mesh.size(tp) == 0
+    Gl, Bl = (G // dp_size, B // dp_size) if split else (G, B)
+    El = E // mesh.size(tp) if e_split else E
+    e0 = mesh.get_local_rank(axes.tp) * El if e_split else 0
+
+    def place(on_dp, on_tp):
+        return [on_dp if i in dp else on_tp if i == tp else Replicate()
+                for i in range(mesh.ndim)]
+
+    rows = Shard(0) if split else Replicate()        # this rank's groups
+    own = Partial() if split else Replicate()        # a sum over this rank's rows
+    experts = (lambda s: s) if e_split else (lambda s: Replicate())  # noqa: E731
+    whole = [Replicate()] * mesh.ndim
+    xr = x.redistribute(mesh, place(rows, Replicate()))
+    router = p["router"].redistribute(mesh, whole).to_local(
+        grad_placements=place(own, Replicate()))
+    xg = xr.to_local().reshape(Gl, T // G, d)
+    Sg = xg.shape[1]
+    logits, probs, gate_vals, expert_idx = _gates(router, xg, top_k)   # [Gl, Sg, K]
+    # the aux loss: per-expert sums over this rank's tokens, summed over dp
+    sums = [DTensor.from_local(t, mesh, place(own, Replicate()), run_check=False)
+            .redistribute(mesh, whole)
+            for t in (probs.reshape(-1, E).sum(0),
+                      _one_hot(expert_idx[..., 0], E, F32).reshape(-1, E).sum(0),
+                      torch.logsumexp(logits, dim=-1).square().sum())]
+    aux = E * (sums[0] / T * (sums[1] / T)).sum() + 1e-3 * (sums[2] / T)
+
+    oh, pos_oh, keep = _einsum_slots(expert_idx, E, top_k, capacity_factor, dtype)
+    oh = oh[..., e0:e0 + El]                                          # this rank's experts
+    xd = xr.to_local(grad_placements=place(rows, experts(Partial()))).reshape(Gl, Sg, d)
+    disp = torch.einsum("gkse,gksc->gsec", oh.to(dtype), pos_oh)     # [Gl, Sg, El, C]
+    buf = torch.einsum("gsec,gsd->gecd", disp, xd.to(dtype))
+    # the expert weights gathered over dp (FSDP), this rank's experts
+    mine = place(Replicate(), experts(Shard(0)))
+    w = {k: p[k].redistribute(mesh, mine).to_local(grad_placements=place(own, experts(Shard(0))))
+         for k in ("w_gate", "w_in", "w_out")}
+    out_e = _swiglu_experts(w, buf, dtype)                          # [Gl, El, C, d]
+
+    # the gates' gradient from this rank's experts, summed over tp
+    gates = DTensor.from_local(gate_vals, mesh, whole, run_check=False).to_local(
+        grad_placements=place(Replicate(), experts(Partial())))
     comb = torch.einsum("gkse,gksc,gks->gsec", oh.float(), pos_oh.float(),
-                        gates_sm * keep).to(dtype)
-    y = torch.einsum("gsec,gecd->gsd", comb, out_e)
-    # the tokens on the dp axes, before the view (a partial sum over tp
-    # cannot be viewed by DTensor in torch 2.11) and after it (DTensor's
-    # backward through it fails on a gradient split over dp and tp)
-    y = constrain(y, axes, act_spec(axes, "dp", None, None))
-    y = constrain(y.reshape(B, S, d), axes, act_spec(axes, "dp", None, None))
-    return y.to(x.dtype), aux
+                        gates.transpose(1, 2) * keep).to(dtype)
+    y = torch.einsum("gsec,gecd->gsd", comb, out_e).reshape(Bl, S, d)
+    y = DTensor.from_local(y, mesh, place(rows, experts(Partial())), run_check=False,
+                           shape=(B, S, d), stride=(S * d, d, 1))
+    return constrain(y, axes, act_spec(axes, "dp", None, None)).to(x.dtype), aux

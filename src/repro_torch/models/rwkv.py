@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import _normal, rms_norm
-from repro_torch.models.sharding import like, on_rows_and_heads
+from repro_torch.models.sharding import like, on_rows_and_heads, sum_partials
 
 F32 = torch.float32
 
@@ -137,7 +137,7 @@ def apply_rwkv6(p: dict, x: torch.Tensor, *, head_dim: int,
     else:
         y, wkv = _wkv_scan(*scan[:5], head_dim, scan[5])
     y = _group_norm(y.to(dtype), p["ln_scale"], H)
-    y = (y * F.silu(g.float()).to(dtype)) @ p["w_o"]
+    y = sum_partials((y * F.silu(g.float()).to(dtype)) @ p["w_o"])
     residual = residual + y
 
     # ---- channel mix ---------------------------------------------------
@@ -147,7 +147,7 @@ def apply_rwkv6(p: dict, x: torch.Tensor, *, head_dim: int,
     xr_c = xc + (xprev_c - xc) * p["cm_mu_r"].to(dtype)
     kk = torch.square(F.relu((xk_c @ p["cm_k"]).float())).to(dtype)
     rr = torch.sigmoid((xr_c @ p["cm_r"]).float())
-    out = residual + (kk @ p["cm_v"]) * rr.to(dtype)
+    out = residual + sum_partials(kk @ p["cm_v"]) * rr.to(dtype)
 
     new_state = {
         # the next chunk's shifts: the last token of the time-mix input

@@ -137,6 +137,59 @@ def constrain(x: torch.Tensor, axes: Optional[MeshAxes], spec: tuple) -> torch.T
     return replicated(x, mesh).redistribute(mesh, place)
 
 
+def sum_partials(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its partial sums reduced (Replicate on each mesh dim
+    where it was Partial), other tensors as they are.  An output
+    projection over a split contraction leaves partial sums, which
+    DTensor would carry on into later ops: there torch 2.11 fails to
+    mix them with a split operand ("redistribute from S(2) to P(sum) not
+    supported"), and a matmul takes its weight whole to keep them (XLA
+    reduces a dot's partial output at once)."""
+    if not isinstance(x, DTensor) or not any(isinstance(p, Partial) for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if isinstance(p, Partial) else p
+                                          for p in x.placements])
+
+
+def split_heads(x: torch.Tensor, n: int, head_dim: int) -> torch.Tensor:
+    """`x` [..., n * head_dim] viewed as [..., n, head_dim].  Where a DTensor
+    splits the last dim over mesh dims whose size does not divide `n`
+    (40 heads, or 8 kv heads, on a model axis of 16), the dim is gathered
+    whole over them first: DTensor cannot unflatten an uneven split,
+    while XLA pads the heads.  The values are the same."""
+    out = (*x.shape[:-1], n, head_dim)
+    if isinstance(x, DTensor):
+        last = Shard(x.ndim - 1)
+        split = [i for i, p in enumerate(x.placements) if p == last]
+        if n % math.prod(x.device_mesh.size(i) for i in split):
+            x = x.redistribute(x.device_mesh, [Replicate() if p == last else p
+                                               for p in x.placements])
+    return x.reshape(out)
+
+
+class _MergeHeads(torch.autograd.Function):
+    """[..., n, head_dim] -> [..., n * head_dim], whose backward views the
+    gradient back through `split_heads`: the output projection's backward
+    hands back a gradient split over tp whatever the head count."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.n, ctx.head_dim = x.shape[-2:]
+        return x.reshape(*x.shape[:-2], ctx.n * ctx.head_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_heads(g, ctx.n, ctx.head_dim)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """`x` [..., n, head_dim] as [..., n * head_dim]; a DTensor's gradient
+    comes back through `split_heads`."""
+    if not isinstance(x, DTensor):
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    return _MergeHeads.apply(x)
+
+
 def dp_spec(axes: MeshAxes):
     """The dp group as one spec entry: its one axis name, or the tuple
     of names (JAX dryrun's `_dp`)."""

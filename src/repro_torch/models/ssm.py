@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import _normal, rms_norm
-from repro_torch.models.sharding import like, on_rows_and_heads
+from repro_torch.models.sharding import like, on_rows_and_heads, sum_partials
 
 F32 = torch.float32
 
@@ -166,7 +166,7 @@ def apply_mamba2(p: dict, x: torch.Tensor, *, d_inner: int, d_state: int, head_d
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(Bsz, S, d_inner).to(dtype)
     y = rms_norm(y * F.silu(z.float()).to(dtype), p["norm"])
-    out = y @ p["w_out"]
+    out = sum_partials(y @ p["w_out"])
     if not return_state:
         return out
     K = p["conv_w"].shape[0]
@@ -216,4 +216,4 @@ def apply_mamba2_decode(p: dict, x: torch.Tensor, state: dict, *, d_inner: int,
         hs, y = _ssm_step(*step)
     y = y.reshape(Bsz, 1, d_inner).to(dtype)
     y = rms_norm(y * F.silu(z.float()).to(dtype), p["norm"])
-    return y @ p["w_out"], {"ssm": hs, "conv": new_conv}
+    return sum_partials(y @ p["w_out"]), {"ssm": hs, "conv": new_conv}

@@ -75,6 +75,8 @@ from repro_torch.models.sharding import (
     dp_spec,
     like,
     site,
+    split_heads,
+    sum_partials,
     zeros_on_mesh,
 )
 
@@ -343,14 +345,14 @@ def _attention_prefill(cfg: ArchConfig, ap: dict, h: torch.Tensor,
     """One attention site over the prompt: h [B, S, d] -> (out [B, S, d],
     k, v [B, S, Hkv, D] for the cache)."""
     B, S, _ = h.shape
-    q = (h @ ap["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (h @ ap["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ ap["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = split_heads(h @ ap["wq"], cfg.n_heads, cfg.head_dim)
+    k = split_heads(h @ ap["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = split_heads(h @ ap["wv"], cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = chunked_attention(q, k, v, causal=True, window=window,
                           softcap=cfg.attn_softcap or None)
-    return o.reshape(B, S, -1) @ ap["wo"], k, v
+    return sum_partials(o.reshape(B, S, -1) @ ap["wo"]), k, v
 
 
 def _write(slots: dict, new: dict) -> None:

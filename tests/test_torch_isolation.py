@@ -40,6 +40,12 @@ def test_no_jax_or_repro_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_dry_run_and_counter_are_scanned():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/launch/dryrun.py", "src/repro_torch/roofline/op_count.py",
+            "src/repro_torch/roofline/__init__.py"} <= names
+
+
 def test_port_dynamic_imports_stay_in_port():
     """registry.get_config builds module names at run time: they must
     name the port's configs package."""
