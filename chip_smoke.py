@@ -5,6 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --ab paged_attention PARENT_DIR [.:-DPA_STAGES=3 ...]
     python3 chip_smoke.py --ab nbbs_pool_step PARENT_DIR
+    python3 chip_smoke.py --ab flash_attention PARENT_DIR
                                      # time builds of a kernel side by side
 
 Phases (any failure fails the run, exit code 1):
@@ -230,20 +231,24 @@ Phases (any failure fails the run, exit code 1):
      bf16, B=1: stablelm-3b (32/32 heads, D=80, S=4096, causal),
      phi3-medium-14b (40/10, D=128, S=4096, causal), gemma2-27b global
      (32/16, D=128, S=8192, causal, softcap 50) and local (the same with
-     its 4096 window), stablelm-3b in fp32 at S=2048, and a gradient at
-     gemma2 local's widths cut to S=2048 and a 1024 window (the S x S
-     reference backward stays small, the window still bites); then each
-     row against its plain version on the card (bf16 within one
-     rounding of the output, 2^-7 |want| + 1e-4; fp32 2e-5; gradient
-     1e-5: the backward recomputes the reference, so the gradient checks
-     the autograd wiring, not the kernel), its time, bound and
-     `library_ms` (one
-     scaled_dot_product_attention call where SDPA computes the same
-     function: causal, no window, no softcap), its TFLOP/s of useful
-     work and its ratios to the bound and to SDPA; and each body's
-     ptxas registers and spills and its HGMMA / HMMA count from
-     `cuobjdump -sass` (every bf16 body must hold HGMMA: wgmma on the
-     tensor cores).
+     its 4096 window), and in fp32 at S=2048 (the 3xTF32 body)
+     stablelm-3b, phi3-medium-14b and gemma2-27b local with a 1024
+     window, and a gradient at gemma2 local's widths cut to S=2048 and a
+     1024 window (the S x S reference backward stays small, the window
+     still bites); then each row against its plain version on the card
+     (bf16 within one rounding of the output, 2^-7 |want| + 1e-4; fp32
+     2e-5 + 2e-5 |want|, the gradient's forward too; gradient 1e-5: the
+     backward recomputes the reference, so the gradient checks the
+     autograd wiring, not the kernel), its time (fp32: the split of K
+     and V and the attention kernel apart, from `torch.profiler`), bound
+     (fp32: the bytes' term against the lesser of the CUDA cores' and
+     the 3xTF32 split's operations terms, both printed) and `library_ms`
+     (one scaled_dot_product_attention call where SDPA computes the same
+     function: causal, no window, no softcap; the kernel it ran named
+     from the profiler), its TFLOP/s of useful work and its ratios to
+     the bound and to SDPA; and each body's ptxas registers and spills
+     and its HGMMA / HMMA count from `cuobjdump -sass` (every bf16 and
+     3xTF32 body must hold HGMMA: wgmma on the tensor cores).
 
 Before the last line it prints the `nvidia-smi` name/power-limit line
 and one JSON line `{"kernels": [...]}`; the last line is
@@ -270,9 +275,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# NVIDIA H100 SXM data sheet (dense): HBM bytes/s, fp32 and bf16 FLOP/s
+# NVIDIA H100 SXM data sheet (dense): HBM bytes/s, fp32 and bf16 FLOP/s;
+# TF32 on the tensor cores
 HBM_BPS = 3.35e12
 PEAK = {"float32": 67e12, "bfloat16": 989e12}
+TF32_PEAK = 495e12
 
 GEOM = dict(num_pages=4096, page_tokens=4, max_batch=256, max_lane_pages=32,
             max_out=64)
@@ -299,6 +306,11 @@ def entry_label(mangled):
     m = re.search(r"flash_fwd_kernelIfLi(\d+)ELi(\d+)E", mangled)
     if m:
         return f"<fp32, RPT={m[1]}, NJ4={m[2]}>"
+    m = re.search(r"flash_fwd_tf32_kernelILi(\d+)ELi(\d+)E", mangled)
+    if m:
+        return f"<fp32 3xTF32, DP={m[1]}, NST={m[2]}>"
+    if "split_kv_tf32_kernel" in mangled:
+        return "<fp32 3xTF32 split of K and V>"
     m = re.search(r"paged_decode_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", mangled)
     if m:
         return f"<{'fp32' if m[1] == 'f' else 'bf16'}, GQ={m[2]}, CH={m[3]}>"
@@ -561,16 +573,18 @@ def ab_paged_attention(torch, dev, libs, trees):
 AB_STEPS = 30   # bursts per churn row of `--ab nbbs_pool_step`; launches per fixed shape
 
 
-def side_wrappers(trees):
-    """Each side's own `kernels/nbbs_alloc.py`: its workspace layout and
-    tier rule go with its kernel.  Loaded beside this checkout's package,
-    whose `_build` hands each of them the library in use."""
+def side_wrappers(trees, module="nbbs_alloc"):
+    """Each side's own `kernels/<module>.py`: its wrapper goes with its
+    kernel (nbbs_alloc: the workspace layout and tier rule;
+    flash_attention: the C signature and the scratch).  Loaded beside
+    this checkout's package, whose `_build` hands each of them the
+    library in use."""
     import importlib.util
 
     mods = {}
     for side, tree in trees.items():
-        path = Path(tree) / "src" / "repro_torch" / "kernels" / "nbbs_alloc.py"
-        spec = importlib.util.spec_from_file_location(f"_ab_nbbs_alloc{len(mods)}", path)
+        path = Path(tree) / "src" / "repro_torch" / "kernels" / f"{module}.py"
+        spec = importlib.util.spec_from_file_location(f"_ab_{module}{len(mods)}", path)
         mods[side] = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mods[side])
     return mods
@@ -778,7 +792,55 @@ def ab_nbbs_pool_step(torch, dev, libs, trees):
     return rows + [empty]
 
 
-AB_KERNELS = {"paged_attention": ab_paged_attention, "nbbs_pool_step": ab_nbbs_pool_step}
+def ab_flash_attention(torch, dev, libs, trees):
+    """`--ab` rows of kernel 5: phase flash's rows (the fp32 ones, and
+    the bf16 ones as a control), each side's build through its own
+    `kernels/flash_attention.py`, held against the plain version and
+    timed with CUDA events (`cuda_ms`), in turns forward then backward;
+    the change's split and attention kernels apart from the profiler."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    sides = list(libs)
+    mods = side_wrappers(trees, "flash_attention")
+    rows = []
+    for seed, (name, cfg, S, var, dtype, has_lib) in enumerate(flash_rows(torch)):
+        q, k, v = flash_inputs(torch, dev, cfg, S, dtype, seed)
+        want = fa.flash_attention_plain(q, k, v, **var)
+        limit = out_limit(torch, want)
+        row = {"case": name, "dtype": str(dtype).replace("torch.", ""),
+               "ms": {side: [] for side in sides}, "err_over_limit": {}, "ok": {},
+               **{k_: v_ for k_, v_ in flash_bound(q, k, v, var).items()
+                  if k_ in ("bound_ms", "bound_by", "ops_terms_ms", "ops_term")}}
+        for side in sides + sides[::-1]:
+            _build.use("flash_attention", libs[side])
+            fwd = mods[side].flash_attention_fwd
+            out = fwd(q, k, v, **var)
+            torch.cuda.synchronize()
+            slack = float(((out.float() - want.float()).abs() / limit).max())
+            row["err_over_limit"][side] = max(slack, row["err_over_limit"].get(side, 0.0))
+            row["ok"][side] = row["err_over_limit"][side] <= 1.0
+            row["ms"][side].append(cuda_ms(torch, lambda: fwd(q, k, v, **var), reps=5,
+                                           warmup=1))
+            if side == "change" and "parts_ms" not in row:
+                row["parts_ms"] = flash_parts_ms(torch, lambda: fwd(q, k, v, **var))
+            del out
+        if has_lib:
+            kw = {"enable_gqa": True} if cfg.n_heads != cfg.n_kv_heads else {}
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            row["library_ms"] = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True, **kw),
+                                        reps=5, warmup=1)
+        row["over_change"] = {side: min(t) / min(row["ms"]["change"])
+                              for side, t in row["ms"].items()}
+        log(json.dumps(row))
+        rows.append(row)
+        del q, k, v, want, limit
+        torch.cuda.empty_cache()
+    return rows
+
+
+AB_KERNELS = {"paged_attention": ab_paged_attention, "nbbs_pool_step": ab_nbbs_pool_step,
+              "flash_attention": ab_flash_attention}
 
 
 def ab(torch, dev, card, argv):
@@ -792,8 +854,10 @@ def ab(torch, dev, card, argv):
     against the plain version; the change must pass.  Prints each build's
     ptxas registers and spills and one JSON line per row, and writes
     `chiprun_out/ab_KERNEL.json`.  KERNEL: paged_attention (phase
-    attention's rows) or nbbs_pool_step (`ab_nbbs_rows`: kernels A, 3 and
-    4, each side through its own `kernels/nbbs_alloc.py`)."""
+    attention's rows), nbbs_pool_step (`ab_nbbs_rows`: kernels A, 3 and
+    4, each side through its own `kernels/nbbs_alloc.py`) or
+    flash_attention (phase flash's rows, each side through its own
+    `kernels/flash_attention.py`)."""
     from repro_torch.kernels import _build
 
     if len(argv) < 3 or argv[0] != "--ab" or argv[1] not in AB_KERNELS:
@@ -4119,6 +4183,9 @@ def flash_rows(torch):
         ("gemma2-27b local", gemma, FLASH_S_GEMMA, dict(cap, window=local),
          torch.bfloat16, False),
         ("stablelm-3b fp32", stablelm, FLASH_S_FP32, dict(causal=True), torch.float32, True),
+        ("phi3-medium-14b fp32", phi3, FLASH_S_FP32, dict(causal=True), torch.float32, True),
+        ("gemma2-27b local fp32", gemma, FLASH_S_FP32, dict(cap, window=FLASH_GRAD_WINDOW),
+         torch.float32, False),
     ]
 
 
@@ -4140,6 +4207,62 @@ def flash_pairs(S, Sk, causal, window):
     return int(np.maximum(hi - lo, 0).sum())
 
 
+def flash_bound(q, k, v, var):
+    """Kernel 5's least time for these inputs: each input read once and
+    the output written once over HBM_BPS, against 4 * B * Hq * pairs * D
+    operations over the type's peak; for fp32 the lesser of the CUDA
+    cores' term and the 3xTF32 split's (three TF32 products per product
+    on the tensor cores), both kept."""
+    B, Hq, S, D = q.shape
+    dtype = str(q.dtype).replace("torch.", "")
+    pairs = flash_pairs(S, k.shape[2], var.get("causal", True), var.get("window"))
+    ops_n = 4 * B * Hq * pairs * D
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    terms = {dtype: ops_n / PEAK[dtype] * 1e3}
+    if dtype == "float32":
+        terms = {"fp32 CUDA cores": terms[dtype],
+                 "3xTF32 tensor cores": 3 * ops_n / TF32_PEAK * 1e3}
+    ops_term = min(terms, key=terms.get)
+    t_bytes = nbytes / HBM_BPS * 1e3
+    return dict(pairs=pairs, operations=ops_n, bytes=nbytes, ops_terms_ms=terms,
+                ops_term=ops_term, bytes_ms=t_bytes, bound_ms=max(t_bytes, terms[ops_term]),
+                bound_by="operations" if terms[ops_term] >= t_bytes else "bytes")
+
+
+def device_kernels(torch, fn, reps=3, attempts=5):
+    """{kernel name: mean device ms per call} of the kernels that `reps`
+    calls of fn ran, from a `torch.profiler` trace; {} when `attempts`
+    traces in a row came back without device events (seen late in a
+    process that traced much before)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                ms = (e.time_range.end - e.time_range.start) / 1e3 / reps
+                out[e.name] = out.get(e.name, 0.0) + ms
+        if out:
+            return out
+    return {}
+
+
+def flash_parts_ms(torch, fn):
+    """Device ms per forward of kernel 5's launches by part: `split` (the
+    fp32 body's split of K and V), `attention` (the attention kernel);
+    None when the profiler saw no kernel."""
+    names = device_kernels(torch, fn)
+    if not names:
+        return None
+    return {part: sum(ms for name, ms in names.items() if key in name)
+            for part, key in (("split", "split_kv_tf32"), ("attention", "flash_fwd"))}
+
+
 def phase_flash(torch, dev, report, state):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -4159,7 +4282,9 @@ def phase_flash(torch, dev, report, state):
     outs = [ops.flash_attention(q, k, v, **var)
             for (q, k, v), (_, _, _, var, _, _) in zip(inputs, rows)]
     leaves = [t.clone().requires_grad_() for t in (gq, gk, gv)]
-    grads = torch.autograd.grad((ops.flash_attention(*leaves, **gvar) * weight).sum(), leaves)
+    gout = ops.flash_attention(*leaves, **gvar)
+    grads = torch.autograd.grad((gout * weight).sum(), leaves)
+    gout = gout.detach()
     torch.cuda.synchronize()
     launches = fa.launches
     log(f"[flash] path: {len(rows)} rows and one gradient through ops.flash_attention, "
@@ -4178,16 +4303,24 @@ def phase_flash(torch, dev, report, state):
         info = ptxas.get(entry, {})
         smem = ""
         m = re.search(r"DP=(\d+), BK=(\d+), NST=(\d+)", entry)
-        if m:   # the bf16 launcher's dynamic shared memory: Q and the K/V ring
+        t = re.search(r"3xTF32, DP=(\d+), NST=(\d+)", entry)
+        if t:   # the 3xTF32 launcher's: Q_lo of two warpgroups, the hi/lo K and V^T ring
+            dp, nst = int(t[1]), int(t[2])
+            panels = -(-dp // 32)
+            smem = (f", {1024 + 2 * panels * 8192 + nst * 2 * 32 * (128 * panels + 4 * dp)}"
+                    " bytes dynamic shared memory")
+        elif m:   # the bf16 launcher's dynamic shared memory: Q and the K/V ring
             panels, bk, nst = -(-int(m[1]) // 64), int(m[2]), int(m[3])
             smem = (f", {1024 + panels * 128 * (2 * 64 + 2 * nst * bk)} bytes dynamic "
                     "shared memory")
         log(f"[flash] SASS {entry}: {ops_['HGMMA']} HGMMA, {ops_['HMMA']} HMMA; ptxas "
             f"{info.get('registers', 'not rebuilt')} registers, spill stores / loads "
             f"{info.get('spill_stores')} / {info.get('spill_loads')} bytes{smem}")
-    bf16_bodies = {e: c for e, c in sass.items() if e.startswith("<bf16")}
-    if not bf16_bodies or any(c["HGMMA"] == 0 for c in bf16_bodies.values()):
-        raise AssertionError(f"a bf16 body of kernel 5 has no wgmma (HGMMA) instruction: {sass}")
+    for kind in ("<bf16", "<fp32 3xTF32, DP"):
+        bodies = {e: c for e, c in sass.items() if e.startswith(kind)}
+        if not bodies or any(c["HGMMA"] == 0 for c in bodies.values()):
+            raise AssertionError(f"a {kind[1:]} body of kernel 5 has no wgmma (HGMMA) "
+                                 f"instruction: {sass}")
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out_rows = []
@@ -4202,9 +4335,11 @@ def phase_flash(torch, dev, report, state):
         tol = OUT_TOL[str(dtype).replace("torch.", "")]
         del want, err, limit
         ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, **var), reps=5, warmup=1)
+        parts = flash_parts_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, **var))
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **var),
                            reps=2, warmup=1)
         library_ms, library_note = None, "SDPA has no logit softcap or sliding window"
+        library_kernels = None
         if has_lib:
             gqa = cfg.n_heads != cfg.n_kv_heads
             try:
@@ -4213,34 +4348,38 @@ def phase_flash(torch, dev, report, state):
                                  - out.float()).abs().max())
                 library_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True, **kw),
                                      reps=5, warmup=1)
+                library_kernels = device_kernels(
+                    torch, lambda: sdpa(q, k, v, is_causal=True, **kw))
                 library_note = (f"scaled_dot_product_attention(is_causal=True"
                                 f"{', enable_gqa=True' if gqa else ''}); max |diff| to "
-                                f"kernel 5 {lib_err:.3e}")
+                                f"kernel 5 {lib_err:.3e}; its kernels (profiler, ms): "
+                                + ("; ".join(f"{n[:100]} {t:.4f}"
+                                             for n, t in library_kernels.items())
+                                   or "not measured (the profiler saw none)"))
             except TypeError as exc:   # a torch without enable_gqa
                 library_note = f"scaled_dot_product_attention refused: {exc}"
         B, Hq, _, D = q.shape
-        pairs = flash_pairs(S, S, var.get("causal", True), var.get("window"))
-        ops_n = 4 * B * Hq * pairs * D
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        t_ops = ops_n / PEAK[str(dtype).replace("torch.", "")] * 1e3
-        t_bytes = nbytes / HBM_BPS * 1e3
-        bound_ms = max(t_ops, t_bytes)
+        bound = flash_bound(q, k, v, var)
+        bound_ms, ops_n = bound["bound_ms"], bound["operations"]
         row = dict(case=name, dtype=str(dtype).replace("torch.", ""), B=B, Hq=Hq,
                    Hkv=k.shape[1], D=D, S=S, **{k_: v_ for k_, v_ in var.items()},
                    max_abs_err=max_err, tol=tol, err_over_limit=slack, ok=ok, ms=ms,
-                   plain_ms=plain_ms,
-                   library_ms=library_ms, library=library_note, pairs=pairs,
-                   operations=ops_n, bytes=nbytes, bound_ms=bound_ms,
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   parts_ms=parts, plain_ms=plain_ms,
+                   library_ms=library_ms, library=library_note,
+                   library_kernels=library_kernels, **bound,
                    tflops=ops_n / ms / 1e9, over_bound=ms / bound_ms,
                    over_library=None if library_ms is None else ms / library_ms)
         over_lib = ("no library call" if library_ms is None
                     else f"{row['over_library']:.2f}x library")
+        terms = ", ".join(f"{n} {t:.4f} ms" for n, t in bound["ops_terms_ms"].items())
+        split = ("not measured (the profiler saw no kernel)" if parts is None else
+                 f"split {parts['split']:.4f} ms, attention {parts['attention']:.4f} ms")
         log(f"[flash] {name} ({row['dtype']}, {Hq}/{row['Hkv']} heads, D={D}, S={S}, "
             f"{var}): max_abs_err {max_err:.3e}, at most {slack:.3f} of its limit "
-            f"({tol}) kernel {ms:.3f} ms plain "
+            f"({tol}) kernel {ms:.3f} ms (profiler: {split}) plain "
             f"{plain_ms:.3f} ms library {library_ms} ms bound {bound_ms:.4f} ms "
-            f"({row['bound_by']}, {ops_n:.3e} operations); {row['tflops']:.1f} TFLOP/s "
+            f"({row['bound_by']}: bytes {bound['bytes_ms']:.4f} ms, operations "
+            f"{ops_n:.3e}: {terms}); {row['tflops']:.1f} TFLOP/s "
             f"useful, {row['over_bound']:.2f}x bound, {over_lib}; {library_note}")
         out_rows.append(row)
         if not ok:
@@ -4254,14 +4393,21 @@ def phase_flash(torch, dev, report, state):
         (fa.flash_attention_plain(*plain_leaves, **gvar) * weight).sum(), plain_leaves)
     grad_err = max(float((a - b).abs().max()) for a, b in zip(grads, want))
     finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    with torch.no_grad():
+        gwant = fa.flash_attention_plain(gq, gk, gv, **gvar)
+    fwd_slack = float(((gout - gwant).abs() / out_limit(torch, gwant)).max())
     log(f"[flash] gradient at gemma2-27b local widths, S={FLASH_GRAD_S}, window "
         f"{FLASH_GRAD_WINDOW}, fp32: max |grad diff| {grad_err:.3e} (tol 1e-5) "
-        f"against autograd through the plain version")
+        f"against autograd through the plain version; its forward (kernel 5) at most "
+        f"{fwd_slack:.3f} of its limit ({OUT_TOL['float32']})")
     if not finite or grad_err > 1e-5:
         raise AssertionError(f"flash gradient differs by {grad_err}")
+    if not fwd_slack <= 1.0:
+        raise AssertionError(f"the gradient's forward is {fwd_slack} of its limit")
     report["flash"] = dict(rows=out_rows, launches=launches, sass=sass,
                            gradient=dict(S=FLASH_GRAD_S, window=FLASH_GRAD_WINDOW,
-                                         max_abs_err=grad_err, tol=1e-5))
+                                         max_abs_err=grad_err, tol=1e-5,
+                                         forward_err_over_limit=fwd_slack))
     torch.cuda.empty_cache()
     return out_rows
 

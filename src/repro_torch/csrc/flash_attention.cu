@@ -11,7 +11,7 @@
 // a row whose denominator is 0.  Output in q's type, rounded once (bf16
 // to nearest even by __float2bfloat16).
 //
-// Both bodies: one block per (q tile, q head, batch) loops over the live
+// Every body: one block per (q tile, q head, batch) loops over the live
 // kv tiles, which takes the place of the TPU's sequential fourth grid
 // axis; the running max, denominator and output accumulator live in
 // registers instead of VMEM scratch.  With `causal` the loop ends at the
@@ -55,17 +55,51 @@
 // second P V product, 1.5x the minimal tensor-core work, and keeps every
 // output within one rounding of the plain version.
 //
-// float32: the CUDA cores (fp32 FMAs, as the Pallas kernel casts to
-// fp32).  Eight threads share a row group: thread (tr, tx) holds rows tr
-// + G * i (G row groups, i < RPT) and, for the logits, columns tx + 8j
-// of a 32-column kv tile, for the output, float4 chunks tx + 8j of the
-// head dimension.  Q, K and V tiles are staged in shared memory as fp32
-// (rows padded to D + 4), the probabilities of a tile as well; the row
-// max and sum go through three warp shuffles.  D <= 64 and D <= 128 take
-// 4 rows a thread and 128 threads, D <= 256 takes 2 rows a thread and
-// 256 threads.  It runs at about a quarter of the 67 TFLOP/s of the fp32
-// CUDA cores: no overlap of loads and arithmetic, two blocks per SM at
-// D = 128.  A 3xTF32 split on the tensor cores is its redesign.
+// float32, D <= 128: 3xTF32 on the tensor cores.  Each fp32 operand x
+// goes in as hi = tf32(x) and lo = tf32(x - hi), where tf32() rounds to
+// nearest with ties away from zero (`cvt.rna.tf32.f32`: the low 13 bits
+// of the word are zero, nothing is left for the tensor core to cut), and
+// a product is lo_a hi_b + hi_a lo_b + hi_a hi_b into the fp32
+// accumulator, the small terms first (CUTLASS's 3xTF32); the dropped
+// lo_a lo_b and the roundings of lo leave about 2^-21 of each product,
+// where one TF32 product leaves 2^-11.  What bounds it is operations: 3
+// x 4 * B * Hq * pairs * D against 495 TFLOP/s of dense TF32, which is
+// below the 67 TFLOP/s of the fp32 CUDA cores for the plain product.
+// `wgmma` takes tf32 operands in shared memory K-major only, so a first
+// kernel (`split_kv_tf32_kernel`) writes K_hi, K_lo [heads, Sk, D] and
+// V^T_hi, V^T_lo [heads, D, SkP] (Sk rounded up to 8) into scratch that
+// the caller allocates, V^T with the kv columns of each group of 8 in
+// the order in which a thread's accumulator holds P (below): a second
+// launch, about 3 x the bytes of K and V moved.  The
+// attention kernel is the bf16 body's design for 4-byte elements: 128 q
+// rows a block in two consumer warpgroups and a producer warpgroup, one
+// thread of which keeps a ring of K_hi, K_lo, V^T_hi and V^T_lo tiles of
+// 32 kv rows full by TMA (128-byte swizzle: 32 fp32 values a row; zeros
+// past D, Sk and the head's last row); two stages at D > 96, three
+// below.  Each consumer thread reads its Q fragment once and keeps Q_hi
+// in registers as the A operand of hi_q K_hi and hi_q K_lo; Q_lo goes to
+// shared memory in the 128-byte swizzle for lo_q K_hi.  S = Q K^T is
+// three m64n32k8 wgmma per 8 columns of D; the softmax is the bf16
+// body's; P is split in registers, and P V is three m64nNk8 wgmma per 8
+// kv columns with P from registers.  A thread's accumulator holds
+// columns 2tq and 2tq + 1 of each group of 8 where the tf32 A fragment
+// wants columns tq and tq + 4, so the split kernel stores V^T's group
+// in the order 0, 2, 4, 6, 1, 3, 5, 7 and P needs no shuffle.  As in the
+// bf16 body, each warpgroup issues S of tile t + 1 and P V of tile t
+// before it runs the softmax of tile t + 1.  Registers at D = 128: O 64,
+// Q_hi 64, S 16, P_hi and P_lo 32.
+//
+// float32, 128 < D <= 256: the CUDA cores (fp32 FMAs), chosen by D in
+// `flash_attention_fwd`: O alone would take 128 registers a thread and
+// Q_hi as many again, and Q_lo with a K/V stage would not fit the 227 KB
+// of shared memory.  No model of the repository has D > 128.  Eight
+// threads share a row group: thread (tr, tx) holds rows tr + G * i (G =
+// 32 row groups, i < 2) and, for the logits, columns tx + 8j of a
+// 32-column kv tile, for the output, float4 chunks tx + 8j of the head
+// dimension.  Q, K and V tiles are staged in shared memory as fp32 (rows
+// padded to D + 4), the probabilities of a tile as well; the row max and
+// sum go through three warp shuffles; loads and arithmetic do not
+// overlap.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -795,20 +829,24 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// [heads, rows, D] bf16 in boxes of 64 columns x box_rows rows with the
-// 128-byte swizzle; a box reads zeros past rows and D
+// [heads, rows, cols] of bf16 (or fp32) in boxes of 128 bytes of columns
+// (64 bf16 or 32 fp32 values) x box_rows rows with the 128-byte swizzle;
+// a box reads zeros past rows and cols
 bool tensor_map(CUtensorMap* map, const void* ptr, int heads, int rows,
-                int D, int box_rows) {
+                int cols, int box_rows, bool fp32 = false) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+  const cuuint64_t elem_bytes = fp32 ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem_bytes,
+                                 (cuuint64_t)rows * cols * elem_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return fn(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            3, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -837,10 +875,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-int dispatch_bf16(const void* q, const void* k, const void* v, void* out,
-                  int B, int Hq, int Hkv, int S, int Sk, int D, float scale,
-                  float softcap, int has_softcap, int causal, int has_window,
-                  int window, cudaStream_t st) {
+TcArgs tc_args(int S, int Sk, int D, float scale, float softcap,
+               int has_softcap, int causal, int has_window, int window) {
   TcArgs a;
   a.S = S;
   a.Sk = Sk;
@@ -853,6 +889,12 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* out,
   a.causal = causal;
   a.has_window = has_window;
   a.window = window;
+  return a;
+}
+
+int dispatch_bf16(const void* q, const void* k, const void* v, void* out,
+                  int B, int Hq, int Hkv, const TcArgs& a, cudaStream_t st) {
+  const int D = a.D;
   if (D <= 32) return launch_bf16<32>(q, k, v, out, B, Hq, Hkv, a, st);
   if (D <= 64) return launch_bf16<64>(q, k, v, out, B, Hq, Hkv, a, st);
   if (D <= 80) return launch_bf16<80>(q, k, v, out, B, Hq, Hkv, a, st);
@@ -862,31 +904,442 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* out,
   return launch_bf16<256>(q, k, v, out, B, Hq, Hkv, a, st);
 }
 
+// ---------------------------------------------------------------------------
+// float32 body (D <= 128): 3xTF32 wgmma, K and V^T as hi/lo tiles through
+// a TMA ring
+
+constexpr int TF_BK = 32;           // kv rows a tile: 128 bytes of V^T
+constexpr int TF_PANEL = 64 * 128;  // 64 rows of a 32-column fp32 panel
+constexpr int TF_MAX_D = 128;       // above: the CUDA-core body
+
+// tf32(x), rounded to nearest with ties away from zero: the low 13 bits
+// of the word are 0
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// K_hi, K_lo [heads, Sk, D] and V^T_hi, V^T_lo [heads, D, SkP] for TF_BK
+// kv rows a block.  V^T's column 8u + kp holds kv row 8u + 2 (kp & 3) +
+// (kp >> 2); its columns from Sk to SkP are 0.
+__global__ void __launch_bounds__(256)
+split_kv_tf32_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                     float* __restrict__ khi, float* __restrict__ klo,
+                     float* __restrict__ vhi, float* __restrict__ vlo, int Hkv,
+                     int Sk, int SkP, int D) {
+  __shared__ float vs[TF_BK][TF_MAX_D + 1];
+  const int c0 = blockIdx.x * TF_BK;
+  const size_t head = (size_t)blockIdx.z * Hkv + blockIdx.y;
+  const int rows = min(TF_BK, Sk - c0);
+  for (int e = threadIdx.x; e < TF_BK * D; e += blockDim.x) {
+    const int r = e / D, c = e - r * D;
+    float x = 0.f;
+    if (r < rows) {
+      const size_t i = (head * Sk + c0 + r) * D + c;
+      uint32_t hi, lo;
+      split_tf32(k[i], hi, lo);
+      khi[i] = __uint_as_float(hi);
+      klo[i] = __uint_as_float(lo);
+      x = v[i];
+    }
+    vs[r][c] = x;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < D * TF_BK; e += blockDim.x) {
+    const int d = e / TF_BK, kp = e - d * TF_BK;
+    if (c0 + kp >= SkP) continue;
+    uint32_t hi, lo;
+    split_tf32(vs[(kp & ~7) + 2 * (kp & 3) + ((kp >> 2) & 1)][d], hi, lo);
+    const size_t i = (head * D + d) * SkP + c0 + kp;
+    vhi[i] = __uint_as_float(hi);
+    vlo[i] = __uint_as_float(lo);
+  }
+}
+
+// s (64 x 32, fp32) = / += A (smem, K-major) * B (smem, K-major), tf32
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[4][4], uint64_t da,
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// o[J0 .. J0 + 4) (64 x 32, fp32) += A (registers) * B (smem, K-major), tf32
+template <int J0, int NO>
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&o)[NO][4],
+                                                  const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(o[J0 + 0][0]), "+f"(o[J0 + 0][1]), "+f"(o[J0 + 0][2]), "+f"(o[J0 + 0][3]),
+        "+f"(o[J0 + 1][0]), "+f"(o[J0 + 1][1]), "+f"(o[J0 + 1][2]), "+f"(o[J0 + 1][3]),
+        "+f"(o[J0 + 2][0]), "+f"(o[J0 + 2][1]), "+f"(o[J0 + 2][2]), "+f"(o[J0 + 2][3]),
+        "+f"(o[J0 + 3][0]), "+f"(o[J0 + 3][1]), "+f"(o[J0 + 3][2]), "+f"(o[J0 + 3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// o[J0 .. J0 + 2) (64 x 16, fp32) += A (registers) * B (smem, K-major), tf32
+template <int J0, int NO>
+__device__ __forceinline__ void wgmma_tf32_rs_n16(float (&o)[NO][4],
+                                                  const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(o[J0 + 0][0]), "+f"(o[J0 + 0][1]), "+f"(o[J0 + 0][2]), "+f"(o[J0 + 0][3]),
+        "+f"(o[J0 + 1][0]), "+f"(o[J0 + 1][1]), "+f"(o[J0 + 1][2]), "+f"(o[J0 + 1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O[:, N0 .. DP) += A (registers) * V^T rows N0 .. DP (K-major at `v`,
+// 128 bytes a row) for the k8 step kk: n32 products, an n16 for the tail
+template <int N0, int DP, int NO>
+__device__ __forceinline__ void pv_tf32(float (&o)[NO][4], const uint32_t (&a)[4],
+                                        uint32_t v, int kk) {
+  if constexpr (N0 < DP) {
+    const uint64_t d = wg_desc(v + N0 * 128 + kk * 32);
+    if constexpr (DP - N0 >= 32) {
+      wgmma_tf32_rs_n32<N0 / 8>(o, a, d);
+      pv_tf32<N0 + 32, DP>(o, a, v, kk);
+    } else {
+      wgmma_tf32_rs_n16<N0 / 8>(o, a, d);
+    }
+  }
+}
+
+// DP: D rounded up to 32, 64, 80, 96 or 128; NST: stages of the ring.
+// tkh, tkl, tvh, tvl: the split kernel's K_hi, K_lo, V^T_hi, V^T_lo.
+template <int DP, int NST>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_tf32_kernel(const float* __restrict__ q,
+                      const __grid_constant__ CUtensorMap tkh,
+                      const __grid_constant__ CUtensorMap tkl,
+                      const __grid_constant__ CUtensorMap tvh,
+                      const __grid_constant__ CUtensorMap tvl,
+                      float* __restrict__ out, int Hq, int Hkv, TcArgs a) {
+  static_assert(DP % 16 == 0 && DP <= TF_MAX_D, "DP");
+  constexpr int BK = TF_BK;
+  constexpr int NPAN = (DP + 31) / 32;     // 32-column panels of Q and K
+  constexpr int QTILE = NPAN * TF_PANEL;   // Q_lo of one warpgroup
+  constexpr int KTILE = NPAN * BK * 128;   // BK rows of K_hi or K_lo
+  constexpr int VTILE = DP * 128;          // DP rows of V^T_hi or V^T_lo
+  constexpr int STAGE = 2 * KTILE + 2 * VTILE;
+  constexpr int NKS = DP / 8;              // k8 steps over D, n8 tiles of O
+  constexpr int NS = BK / 8;               // n8 tiles of S, k8 steps of P V
+  extern __shared__ unsigned char wg_smem[];
+  __shared__ __align__(8) uint64_t full[NST], empty[NST];
+  // panels of the 128-byte swizzle start on 1024-byte boundaries
+  const uint32_t raw = smem_u32(wg_smem);
+  unsigned char* Qs = wg_smem + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* ring = Qs + WG_CONSUMERS * QTILE;  // [NST][STAGE]
+
+  const int S = a.S, Sk = a.Sk, D = a.D;
+  // heads of one q tile next to each other; causal: heaviest tile first
+  const int nq = gridDim.x / Hq;
+  const int h = blockIdx.x % Hq;
+  const int qi = blockIdx.x / Hq;
+  const int qt = a.causal ? nq - 1 - qi : qi;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int row0 = qt * WG_BQ;
+  // live kv tiles of this q tile: [t0, t1)
+  const int end = a.causal ? min(Sk, row0 + WG_BQ) : Sk;
+  const int begin = a.has_window ? max(0, row0 - a.window + 1) : 0;
+  const int t0 = begin / BK, t1 = (end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < NST; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 128 * WG_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == WG_CONSUMERS) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 128 * WG_CONSUMERS) {
+      const int head = b * Hkv + hk;
+      for (int t = t0, i = 0; t < t1; ++t, ++i) {
+        const int st = i % NST;
+        unsigned char* stage = ring + st * STAGE;
+        mbar_wait(&empty[st], ((i / NST) & 1) ^ 1);
+        mbar_expect_tx(&full[st], STAGE);
+        for (int p = 0; p < NPAN; ++p) {
+          tma_load(stage + p * BK * 128, &tkh, 32 * p, t * BK, head, &full[st]);
+          tma_load(stage + KTILE + p * BK * 128, &tkl, 32 * p, t * BK, head, &full[st]);
+        }
+        tma_load(stage + 2 * KTILE, &tvh, t * BK, 0, head, &full[st]);
+        tma_load(stage + 2 * KTILE + VTILE, &tvl, t * BK, 0, head, &full[st]);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns q rows wrow0 .. wrow0 + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int tid = threadIdx.x % 128, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wrow0 = row0 + 64 * wg;
+  const int ra = wrow0 + warp * 16 + g;  // rows ra and ra + 8 of the thread
+  const int w1 = max(t0, min(t1, a.causal ? (min(Sk, wrow0 + 64) + BK - 1) / BK : t1));
+  const int w0 = min(w1, max(t0, a.has_window ? max(0, wrow0 - a.window + 1) / BK : t0));
+
+  // Q once: Q_hi in registers as the A fragment of each k8 step (rows
+  // ra, ra + 8 x columns tq, tq + 4 of the step), Q_lo into shared
+  // memory in the 128-byte swizzle; zeros past S and D
+  unsigned char* qlo = Qs + wg * QTILE;
+  const float* qh_ptr = q + ((size_t)b * Hq + h) * S * D;
+  uint32_t qh[NKS][4];
+#pragma unroll
+  for (int ks = 0; ks < NKS; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = warp * 16 + g + (e & 1) * 8;
+      const int c = 8 * ks + tq + (e >> 1) * 4;
+      const float x = wrow0 + r < S && c < D ? qh_ptr[(size_t)(wrow0 + r) * D + c] : 0.f;
+      uint32_t lo;
+      split_tf32(x, qh[ks][e], lo);
+      const int cc = c % 32;
+      *reinterpret_cast<uint32_t*>(qlo + (c / 32) * TF_PANEL + r * 128 +
+                                   (((cc >> 2) ^ (r & 7)) << 4) + (cc & 3) * 4) = lo;
+    }
+  // Q_lo is read by wgmma (the async proxy), once the warpgroup wrote it
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  const uint32_t qlo_s = smem_u32(qlo);
+
+  float o[NKS][4], s[NS][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float alpha[2];
+  uint32_t ph[NS][4], pl[NS][4];  // P of the tile in flight, as A fragments
+#pragma unroll
+  for (int j = 0; j < NKS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  auto stage_at = [&](int i) { return smem_u32(ring + (i % NST) * STAGE); };
+  // S = Q K^T: per k8 step lo_q hi_k, hi_q lo_k, hi_q hi_k
+  auto qk = [&](uint32_t st) {
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks) {
+      const int k_off = (ks / 4) * (BK * 128) + (ks % 4) * 32;
+      const uint64_t khi = wg_desc(st + k_off), klo = wg_desc(st + KTILE + k_off);
+      wgmma_tf32_ss_n32(s, wg_desc(qlo_s + (ks / 4) * TF_PANEL + (ks % 4) * 32), khi,
+                        ks > 0);
+      wgmma_tf32_rs_n32<0>(s, qh[ks], klo);
+      wgmma_tf32_rs_n32<0>(s, qh[ks], khi);
+    }
+  };
+  auto softmax = [&](int t) {
+    const int col0 = t * BK;
+    const bool edge = col0 + BK > Sk || (a.causal && col0 + BK - 1 > wrow0) ||
+                      (a.has_window && col0 <= wrow0 + 63 - a.window);
+    if (edge)
+      tc_softmax<true>(s, m, l, alpha, a, ra, col0, tq);
+    else
+      tc_softmax<false>(s, m, l, alpha, a, ra, col0, tq);
+  };
+  // O *= alpha, and P as tf32 hi and lo A fragments: k step j takes
+  // columns 2tq, 2tq + 1 of the thread as its k = tq, tq + 4 (V^T's
+  // order within each group of 8)
+  auto rescale_split = [&]() {
+#pragma unroll
+    for (int j = 0; j < NKS; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      split_tf32(s[j][0], ph[j][0], pl[j][0]);
+      split_tf32(s[j][2], ph[j][1], pl[j][1]);
+      split_tf32(s[j][1], ph[j][2], pl[j][2]);
+      split_tf32(s[j][3], ph[j][3], pl[j][3]);
+    }
+  };
+  // O += P V: per k8 step lo_p hi_v, hi_p lo_v, hi_p hi_v
+  auto pv = [&](uint32_t st) {
+    const uint32_t vh = st + 2 * KTILE, vl = vh + VTILE;
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      pv_tf32<0, DP>(o, pl[kk], vh, kk);
+      pv_tf32<0, DP>(o, ph[kk], vl, kk);
+      pv_tf32<0, DP>(o, ph[kk], vh, kk);
+    }
+  };
+
+  int i = 0;  // position in the ring
+  for (int t = t0; t < w0; ++t, ++i) {
+    mbar_wait(&full[i % NST], (i / NST) & 1);
+    mbar_arrive(&empty[i % NST]);
+  }
+  if (w0 < w1) {
+    mbar_wait(&full[i % NST], (i / NST) & 1);
+    wg_fence();
+    qk(stage_at(i));
+    wg_commit();
+    wg_wait_all();
+    softmax(w0);
+    rescale_split();
+    // S of tile t + 1 and P V of tile t on the tensor cores while the
+    // softmax of tile t + 1 runs on the CUDA cores
+    for (int t = w0; t + 1 < w1; ++t, ++i) {
+      const int st = i % NST;
+      mbar_wait(&full[(i + 1) % NST], ((i + 1) / NST) & 1);
+      wg_fence();
+      qk(stage_at(i + 1));
+      wg_commit();
+      pv(stage_at(i));
+      wg_commit();
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // S
+      softmax(t + 1);
+      wg_wait_all();  // P V of tile t: its stage is free
+      mbar_arrive(&empty[st]);
+      rescale_split();
+    }
+    wg_fence();
+    pv(stage_at(i));
+    wg_commit();
+    wg_wait_all();
+    mbar_arrive(&empty[i % NST]);
+    ++i;
+  }
+  for (int t = w1; t < t1; ++t, ++i) {
+    mbar_wait(&full[i % NST], (i / NST) & 1);
+    mbar_arrive(&empty[i % NST]);
+  }
+
+  // the row sums over the 4 threads of a row, then the fp32 output
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = ra + 8 * r;
+    if (row >= S) continue;
+    const float norm = l[r] == 0.f ? 1.f : l[r];
+    float* orow = out + (((size_t)b * Hq + h) * S + row) * D;
+#pragma unroll
+    for (int j = 0; j < NKS; ++j) {
+      const int col = 8 * j + 2 * tq;
+      if (col < D)
+        *reinterpret_cast<float2*>(orow + col) =
+            make_float2(o[j][2 * r] / norm, o[j][2 * r + 1] / norm);
+    }
+  }
+}
+
+// Floats of scratch the fp32 body takes: K_hi, K_lo, V^T_hi, V^T_lo.
+size_t tf32_scratch_floats(int B, int Hkv, int Sk, int D) {
+  const size_t SkP = (size_t)(Sk + 7) / 8 * 8;
+  return 2 * (size_t)B * Hkv * D * ((size_t)Sk + SkP);
+}
+
+template <int DP>
+int launch_tf32(const void* q, const void* k, const void* v, void* out,
+                void* scratch, int B, int Hq, int Hkv, const TcArgs& a,
+                cudaStream_t st) {
+  constexpr int NPAN = (DP + 31) / 32;
+  constexpr int QTILE = NPAN * TF_PANEL;
+  constexpr int STAGE = 2 * NPAN * TF_BK * 128 + 2 * DP * 128;
+  // 227 KB a block, less the alignment slack and the barriers
+  constexpr int FIT = (232448 - 1024 - 64 - WG_CONSUMERS * QTILE) / STAGE;
+  constexpr int NST = FIT < RING ? FIT : RING;
+  const int SkP = (a.Sk + 7) / 8 * 8;
+  const size_t kn = (size_t)B * Hkv * a.Sk * a.D, vn = (size_t)B * Hkv * a.D * SkP;
+  float* khi = static_cast<float*>(scratch);
+  float* klo = khi + kn;
+  float* vhi = klo + kn;
+  float* vlo = vhi + vn;
+  split_kv_tf32_kernel<<<dim3((SkP + TF_BK - 1) / TF_BK, Hkv, B), 256, 0, st>>>(
+      (const float*)k, (const float*)v, khi, klo, vhi, vlo, Hkv, a.Sk, SkP, a.D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tkh, tkl, tvh, tvl;
+  if (!tensor_map(&tkh, khi, B * Hkv, a.Sk, a.D, TF_BK, true) ||
+      !tensor_map(&tkl, klo, B * Hkv, a.Sk, a.D, TF_BK, true) ||
+      !tensor_map(&tvh, vhi, B * Hkv, a.D, SkP, DP, true) ||
+      !tensor_map(&tvl, vlo, B * Hkv, a.D, SkP, DP, true))
+    return (int)cudaErrorInvalidValue;
+  auto kern = flash_fwd_tf32_kernel<DP, NST>;
+  const size_t smem = 1024 + (size_t)WG_CONSUMERS * QTILE + (size_t)NST * STAGE;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(((a.S + WG_BQ - 1) / WG_BQ) * Hq, 1, B);
+  kern<<<grid, WG_THREADS, smem, st>>>((const float*)q, tkh, tkl, tvh, tvl,
+                                       (float*)out, Hq, Hkv, a);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_tf32(const void* q, const void* k, const void* v, void* out,
+                  void* scratch, int B, int Hq, int Hkv, const TcArgs& a,
+                  cudaStream_t st) {
+  const int D = a.D;
+  if (D <= 32) return launch_tf32<32>(q, k, v, out, scratch, B, Hq, Hkv, a, st);
+  if (D <= 64) return launch_tf32<64>(q, k, v, out, scratch, B, Hq, Hkv, a, st);
+  if (D <= 80) return launch_tf32<80>(q, k, v, out, scratch, B, Hq, Hkv, a, st);
+  if (D <= 96) return launch_tf32<96>(q, k, v, out, scratch, B, Hq, Hkv, a, st);
+  return launch_tf32<128>(q, k, v, out, scratch, B, Hq, Hkv, a, st);
+}
+
 }  // namespace
 
+// Bytes of scratch that `flash_attention_fwd` needs for these shapes: the
+// fp32 body's K_hi, K_lo, V^T_hi and V^T_lo at D <= 128, else 0.
+extern "C" long long flash_attention_scratch_bytes(int B, int Hkv, int Sk, int D,
+                                                   int dtype) {
+  if (dtype != 0 || D > TF_MAX_D) return 0;
+  return (long long)(sizeof(float) * tf32_scratch_floats(B, Hkv, Sk, D));
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  D a multiple of 8, at most 256;
-// q, k, v, out contiguous and 16-byte aligned (the wrapper checks).
+// q, k, v, out contiguous and 16-byte aligned (the wrapper checks);
+// scratch: `flash_attention_scratch_bytes` bytes, 16-byte aligned.
+// float32 takes the 3xTF32 body at D <= 128 and the CUDA-core body above.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int B, int Hq,
                                    int Hkv, int S, int Sk, int D, float scale,
                                    float softcap, int has_softcap, int causal,
                                    int has_window, int window, int dtype,
-                                   void* stream) {
+                                   void* scratch, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (D <= 0 || D % 8 || D > 256) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    if (D <= 64)
-      return launch<float, 4, 2>(q, k, v, out, B, Hq, Hkv, S, Sk, D, scale,
-                                 softcap, has_softcap, causal, has_window,
-                                 window, st);
-    if (D <= 128)
-      return launch<float, 4, 4>(q, k, v, out, B, Hq, Hkv, S, Sk, D, scale,
-                                 softcap, has_softcap, causal, has_window,
-                                 window, st);
+  if (dtype == 0 && D > TF_MAX_D)
     return launch<float, 2, 8>(q, k, v, out, B, Hq, Hkv, S, Sk, D, scale,
                                softcap, has_softcap, causal, has_window,
                                window, st);
+  const TcArgs a = tc_args(S, Sk, D, scale, softcap, has_softcap, causal,
+                           has_window, window);
+  if (dtype == 0) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    return dispatch_tf32(q, k, v, out, scratch, B, Hq, Hkv, a, st);
   }
-  return dispatch_bf16(q, k, v, out, B, Hq, Hkv, S, Sk, D, scale, softcap,
-                       has_softcap, causal, has_window, window, st);
+  return dispatch_bf16(q, k, v, out, B, Hq, Hkv, a, st);
 }

@@ -6,8 +6,12 @@ attends over k, v [B, Hkv, Sk, D] with GQA, a causal mask, a sliding
 window and a logit softcap, in fp32 online softmax; kv tiles outside
 the causal diagonal or the window are skipped.  bfloat16 runs on the
 tensor cores (wgmma; P as a hi/lo pair of bf16 values, so that the
-output stays within one rounding of the plain version), float32 on the
-CUDA cores.
+output stays within one rounding of the plain version).  float32 with
+D <= 128 runs on them too, as 3xTF32: each operand x as hi = tf32(x)
+and lo = tf32(x - hi) (rounded to nearest, ties away), each product as
+lo hi + hi lo + hi hi in fp32, behind a first kernel that writes K and
+V^T as hi/lo halves into scratch allocated here; float32 with D > 128
+runs on the CUDA cores.
 
 `flash_attention_fwd` keeps the JAX signature (without `interpret`) and
 refuses, with ValueError, what the JAX assertion refuses: Hq not a
@@ -33,7 +37,7 @@ launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
@@ -49,6 +53,8 @@ def _lib():
     if lib.flash_attention_fwd.argtypes is None:
         lib.flash_attention_fwd.argtypes = _ARGTYPES
         lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_scratch_bytes.argtypes = [ctypes.c_int] * 5
+        lib.flash_attention_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -107,11 +113,16 @@ def flash_attention_fwd(
         window = max(-Sk, min(int(window), S))
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
-    err = _lib().flash_attention_fwd(
+    lib = _lib()
+    # the fp32 body's K and V^T as tf32 hi/lo halves
+    nbytes = lib.flash_attention_scratch_bytes(B, Hkv, Sk, D, _DTYPES[q.dtype])
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
+    err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Hq, Hkv, S, Sk, D, float(scale), float(softcap or 0.0),
         int(softcap is not None), int(causal), int(window is not None),
         int(window or 0), _DTYPES[q.dtype],
+        None if scratch is None else scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "flash_attention_fwd")

@@ -25,8 +25,11 @@ tests/test_kernels.py (shapes, variants, block sizes), at D=80 and
 D=128 and with a ragged Sk, every bf16 output also within one rounding
 (2^-7 |want| + 1e-4), its tensor-core body at S = 1024-2048 over D in
 {16, 24, 64, 80, 128, 256}, GQA groups 1-4, windows, softcaps, ragged
-S and Sk and B = 2, and the gradient of `ops.flash_attention` must
-equal autograd through the plain version.  The engine's decode
+S and Sk and B = 2, its fp32 body (3xTF32 at D <= 128, the CUDA cores
+above) within 2e-5 + 2e-5 |want| at S and Sk off its 32-row tiles, D in
+{8, 16, 72, 80, 128, 256}, the window's first live tile and GQA 40/10
+at S=2048, and the gradient of `ops.flash_attention` must equal
+autograd through the plain version.  The engine's decode
 step must run with no host sync in both layouts, with and without the
 front ends and the event ring.
 """
@@ -547,6 +550,48 @@ def test_flash_bf16_tensor_core_tiles_match_plain(cuda_device, B, Hq, Hkv, S, Sk
     without masks."""
     _flash_check(cuda_device, torch.bfloat16, B, Hq, Hkv, S, D, Sk=Sk, block=block,
                  **variant)
+
+
+_TF32_CASES = [
+    # (B, Hq, Hkv, S, Sk, D, block, variant): the fp32 body's edges
+    (1, 4, 2, 100, 200, 80, 4, _CAUSAL),                      # S, Sk off the 32-row tiles
+    (1, 4, 2, 1020, 1100, 128, 4, _CAUSAL),
+    (2, 4, 2, 1100, 1020, 80, 4, dict(causal=True, window=250)),
+    (1, 4, 4, 333, 333, 80, 333, dict(causal=False, softcap=20.0)),
+    # D: 8 and 16 (one panel, mostly zero fill), 72 and 80 (the third
+    # panel half used), 128 (four panels, two stages), 256 (the CUDA-core body)
+    *[(1, 4, 2, 1024, None, D, 64, _CAUSAL) for D in (8, 16, 72, 80, 128, 256)],
+    # the window's first live tile: starting inside a tile, on a tile's
+    # edge, one column wide, and wider than the q tile
+    *[(1, 4, 2, 1024, None, 80, 64, dict(causal=True, window=w))
+      for w in (1, 31, 32, 33, 100, 700)],
+    (1, 4, 1, 2048, None, 128, 64, dict(causal=True, window=1024, softcap=50.0)),
+    (1, 4, 2, 1024, None, 128, 64, dict(causal=True, softcap=50.0)),
+    (1, 40, 10, 2048, None, 128, 64, _CAUSAL),                # phi3-medium's GQA 40/10
+    (1, 4, 2, 1024, None, 80, 64, dict(causal=False)),
+    (1, 2, 2, 1024, None, 80, 64, dict(causal=True, window=0)),   # no live column
+]
+_TF32_IDS = [
+    "d80-s100-sk200", "d128-s1020-sk1100", "d80-b2-s1100-sk1020-window250",
+    "d80-s333-noncausal-softcap20",
+    *[f"d{D}" for D in (8, 16, 72, 80, 128, 256)],
+    *[f"d80-window{w}" for w in (1, 31, 32, 33, 100, 700)],
+    "d128-s2048-window1024-softcap50", "d128-softcap50", "d128-gqa40-10-s2048",
+    "d80-noncausal", "d80-window0",
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,Sk,D,block,variant", _TF32_CASES, ids=_TF32_IDS)
+def test_flash_fp32_tensor_core_tiles_match_plain(cuda_device, B, Hq, Hkv, S, Sk, D,
+                                                   block, variant):
+    """The fp32 body (3xTF32 on the tensor cores at D <= 128, the CUDA
+    cores above) within 2e-5 + 2e-5 |want| of the plain version at the
+    edges of its tiling: ragged S and Sk, every D dispatch, the window's
+    first live tile, GQA 40/10 at S=2048."""
+    out = _flash_check(cuda_device, torch.float32, B, Hq, Hkv, S, D, Sk=Sk, block=block,
+                       **variant)
+    if variant.get("window", 1) <= 0:
+        assert not out.any()
 
 
 def test_flash_kernel_refuses_unsupported(cuda_device):
