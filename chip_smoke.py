@@ -7,6 +7,8 @@ NVIDIA H100.
     python3 chip_smoke.py --ab nbbs_pool_step PARENT_DIR
     python3 chip_smoke.py --ab flash_attention PARENT_DIR
                                      # time builds of a kernel side by side
+    python3 chip_smoke.py --trace-loss [SECONDS]
+                                     # device records the profiler loses
 
 Phases (any failure fails the run, exit code 1):
 
@@ -52,8 +54,9 @@ Phases (any failure fails the run, exit code 1):
      K=256 (the device-memory tier), kernel 3 with F=K/2 frees from the
      live set, both layouts,
      bit-identical; then, with the launch counts at 0, the user's
-     single-tree path on the card: examples/quickstart.py §3-§6 through
-     `repro_torch` with the example's assertions, and the single-op API
+     single-tree path on the card: examples/quickstart.py through its
+     twin `repro_torch.examples.quickstart` (§3-§6 on the card) with the
+     example's assertions, and the single-op API
      (`nb_alloc`, `nb_alloc_size`, `nb_free`, `nb_free_batch`) on a
      16K-unit tree in both layouts, held against a CPU replay;
   5. the main path: `JitServeEngine` serving stablelm-3b at full width
@@ -207,7 +210,29 @@ Phases (any failure fails the run, exit code 1):
      cache leaves within 1e-5 of their max, the difference reported);
      B=1 on the cache rule's branch for a batch that does not divide
      over dp;
-  13. dryrun: the dry run of the production meshes, no kernel of the
+  13. examples: the twins of examples/ and tools/obsdump.py
+     (`repro_torch.examples`, `repro_torch.tools`), each through its
+     function: quickstart on the card (kernel 4 on §4 and §6, kernel 3
+     on §6, with the example's assertions), serve_paged with stablelm-3b
+     at full width in bf16 (ServeEngine, then JitServeEngine with kernels
+     A and B, the ring on; every request served, the pool coalesced and
+     free; tokens/s of each), the obsdump twin on the snapshot it wrote
+     (the metric table, the ring's events, a trace that validates),
+     train_tiny_lm on the card (160 steps with its restart: first and
+     last loss), elastic_restart on 8 gloo ranks of this machine's CPU
+     ((4, 2) -> (2, 4), its 8 losses within 1e-5 relative of the
+     unsharded port's);
+  14. ranks: the sharded paths on 4 gloo ranks of this machine's CPU
+     under its torch (`repro_torch.launch.ranks`), fp32 at the reduced
+     widths, each case against the unsharded port in this process with
+     the CPU files' tolerances: `train_loss` and its gradients for
+     stablelm-3b, phi3.5-moe (scatter and einsum dispatch), zamba2-1.2b,
+     rwkv6-7b and stablelm-3b on the multi-pod (2, 2, 1) mesh, three
+     sharded `make_train_step` steps, the elastic (2, 2) -> (1, 4)
+     restore, `compressed_psum` over each axis (bit-equal), `train.pp`
+     over 2 stages, sharded `prefill` and 4 greedy `decode_step`s of
+     stablelm-3b and zamba2-1.2b (tokens equal); one line per case;
+  15. dryrun: the dry run of the production meshes, no kernel of the
      port on its path: (a) `python -m repro_torch.launch.dryrun --device
      cuda` in five processes side by side, one cell each, each a fake
      world of 256 or 512 ranks with fake CUDA tensors: stablelm-3b train_4k,
@@ -226,7 +251,7 @@ Phases (any failure fails the run, exit code 1):
      against the same call on fake CPU tensors (flops, bytes, op counts;
      the ops that differ named), `memory_s` and `compute_s` beside the
      step's measured ms;
-  14. flash: with its launch count at 0, the differentiable
+  16. flash: with its launch count at 0, the differentiable
      `ops.flash_attention` (kernel 5 forward) at full attention width in
      bf16, B=1: stablelm-3b (32/32 heads, D=80, S=4096, causal),
      phi3-medium-14b (40/10, D=128, S=4096, causal), gemma2-27b global
@@ -720,19 +745,18 @@ def kernel_launch_ms(torch, fn, name, reps):
     fn, from a `torch.profiler` trace: the kernel alone, without the
     wrapper's own PyTorch ops (casts of bool masks, the stat row's fill,
     `nodes > 0`)."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(3):   # a trace now and then comes back without its kernels
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with traced(torch) as tr:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if name in e.name and str(getattr(e, "device_type", "")).endswith("CUDA")]
+        spans = [e.time_range.end - e.time_range.start for e in tr.events
+                 if name in e.name and on_card(e)]
         if spans:
             return sum(spans) / len(spans) / 1e3
-    raise AssertionError(f"the profiler saw no {name} launch in three traces")
+    raise AssertionError(f"the profiler saw no {name} launch in three traces "
+                         f"(the last lost {tr.lost} of its {LEAD_IN} lead-in records)")
 
 
 def ab_nbbs_pool_step(torch, dev, libs, trees):
@@ -841,6 +865,66 @@ def ab_flash_attention(torch, dev, libs, trees):
 
 AB_KERNELS = {"paged_attention": ab_paged_attention, "nbbs_pool_step": ab_nbbs_pool_step,
               "flash_attention": ab_flash_attention}
+
+
+def trace_loss(torch, dev, argv):
+    """python3 chip_smoke.py --trace-loss [SECONDS]
+
+    The device records `torch.profiler` loses at the start of a trace as
+    the process traces more: phase profile's S=1 engine (stablelm-3b at
+    full width, `make_trace(0)`), one fused chunk to capture its graph,
+    then for SECONDS (400 by default) windows of two graph replays,
+    alternately without and with `traced`'s lead-in.  Per window: kernel
+    A's and kernel B's device events against 2 and n_layers per step, all
+    device events, and the lead-in records lost.  Writes
+    `chiprun_out/trace_loss.json`; exits 1 when a window with the lead-in
+    missed a kernel A or B event."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.jit_engine import JitServeEngine
+
+    seconds = float(argv[1]) if len(argv) > 1 else 400.0
+    _build.build_all()
+    cfg = get_config("stablelm-3b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev, dtype=torch.bfloat16)
+    eng = JitServeEngine(cfg, params, dtype=torch.bfloat16, device=dev, **GEOM)
+    for i, p, mn in make_trace(0):
+        eng.submit(Request(i, p.copy(), mn))
+    eng._admit()
+    eng.decode_steps(CHUNK, fused=True)   # warm-up and capture
+    torch.cuda.synchronize()
+    steps = 2 * CHUNK
+    want = {"nbbs_step_kernel": 2 * steps, "paged_decode_kernel": cfg.n_layers * steps}
+    rows, t0 = [], time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        lead = len(rows) % 2 == 1
+        with traced(torch, lead_in=lead) as tr:
+            for _ in range(2):
+                eng.decode_steps(CHUNK, fused=True)
+            torch.cuda.synchronize()
+        events = [e for e in tr.events if on_card(e)]
+        counts = {k: sum(k in e.name for e in events) for k in want}
+        rows.append(dict(window=len(rows), s=time.perf_counter() - t0, lead_in=lead,
+                         counts=counts, complete=counts == want, device_events=len(events),
+                         lead_in_lost=tr.lost if lead else None))
+        log(json.dumps(rows[-1]))
+    summary = {}
+    for lead in (False, True):
+        mine = [r for r in rows if r["lead_in"] == lead]
+        summary["with lead-in" if lead else "without"] = dict(
+            windows=len(mine), incomplete=sum(not r["complete"] for r in mine),
+            first_incomplete=next((r["window"] for r in mine if not r["complete"]), None),
+            device_events=[r["device_events"] for r in mine],
+            lead_in_lost=[r["lead_in_lost"] for r in mine] if lead else None)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "trace_loss.json").write_text(json.dumps(dict(want=want, rows=rows,
+                                                         summary=summary), indent=1))
+    log(json.dumps(summary))
+    return 1 if summary["with lead-in"]["incomplete"] else 0
 
 
 def ab(torch, dev, card, argv):
@@ -1341,48 +1425,6 @@ def single_tree_rows(torch, dev, layout):
     return rows
 
 
-def quickstart_on_card(torch, dev):
-    """examples/quickstart.py §3-§6 through repro_torch on the card, with
-    the example's assertions."""
-    import numpy as np
-
-    from repro_torch.core import concurrent as conc
-    from repro_torch.core import pool
-    from repro_torch.core.concurrent import BUNCH_PACKED, TreeConfig
-    from repro_torch.kernels import ops
-
-    levels = torch.from_numpy(
-        np.random.default_rng(0).integers(5, 11, 32).astype(np.int32)).to(dev)
-    ones = torch.ones(32, dtype=torch.bool, device=dev)
-    cfg = TreeConfig(depth=10, max_level=0)
-    tree, nodes, ok, stats = conc.wavefront_alloc(cfg, cfg.empty_tree(dev), levels, ones)
-    t2, n2, _, st2 = ops.nbbs_wavefront_alloc(cfg, cfg.empty_tree(dev), levels)
-    if not (torch.equal(t2, tree) and torch.equal(n2, nodes)):
-        raise AssertionError("quickstart §4: the kernel differs from the plain rounds")
-    out = dict(committed=int(ok.sum()), rounds=int(st2["rounds"]),
-               merged_writes=int(st2["merged_writes"]),
-               logical_rmws=int(st2["logical_rmws"]))
-    pcfg = pool.PoolConfig(TreeConfig(depth=8, max_level=0), n_shards=4)
-    trees, pnodes, shard, pok, pstats = pool.pool_wavefront_alloc(
-        pcfg, pcfg.empty_trees(dev), levels - 2, ones)
-    trees, _, _ = pool.pool_wavefront_free(pcfg, trees, pnodes, shard, pok)
-    if trees.any():
-        raise AssertionError("quickstart §5: burst release left a tree non-empty")
-    out.update(pool_committed=int(pok.sum()), pool_overflows=int(pstats["overflows"]),
-               per_shard=torch.bincount(shard[pok], minlength=4).tolist())
-    pcfg6 = TreeConfig(depth=10, max_level=0, layout=BUNCH_PACKED)
-    ptree, pn, pko, pst = ops.nbbs_wavefront_alloc(pcfg6, pcfg6.empty_tree(dev), levels)
-    if not torch.equal(pn, nodes):
-        raise AssertionError("quickstart §6: packed nodes differ from unpacked")
-    none = torch.zeros(0, dtype=torch.int32, device=dev)
-    ptree, _, _, _ = ops.nbbs_wavefront_step(pcfg6, ptree, pn, pko, none)
-    if ptree.any():
-        raise AssertionError("quickstart §6: packed release left words set")
-    out.update(packed_words=pcfg6.n_state_words, unpacked_words=cfg.n_state_words,
-               packed_merged_writes=int(pst["merged_writes"]))
-    return out
-
-
 def single_op_on_card(torch, dev, layout, calls=160):
     """The single-op API on a 16K-unit tree: seeded nb_alloc /
     nb_alloc_size / nb_free / nb_free_batch calls (junk and double frees
@@ -1436,13 +1478,14 @@ def single_op_on_card(torch, dev, layout, calls=160):
 
 def phase_single_tree(torch, dev, report, state):
     from repro_torch.core.concurrent import BUNCH_PACKED, UNPACKED
+    from repro_torch.examples import quickstart
     from repro_torch.kernels import nbbs_alloc
 
     rows = single_tree_rows(torch, dev, UNPACKED) + single_tree_rows(torch, dev, BUNCH_PACKED)
     # the user's single-tree path, with every launch count at 0
     nbbs_alloc.wavefront_alloc_launches = 0
     nbbs_alloc.wavefront_step_launches = 0
-    quick = quickstart_on_card(torch, dev)
+    quick = quickstart.run(dev, out=lambda *a: None)   # examples/quickstart.py's twin
     api = [single_op_on_card(torch, dev, layout) for layout in (UNPACKED, BUNCH_PACKED)]
     launches = {"nbbs_wavefront_alloc": nbbs_alloc.wavefront_alloc_launches,
                 "nbbs_wavefront_step": nbbs_alloc.wavefront_step_launches}
@@ -1693,6 +1736,62 @@ def check_ring_run(eng, state, row):
     return events
 
 
+# spin kernels that open every device trace (`traced`)
+LEAD_IN = 4096
+
+
+def on_card(e):
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
+class traced:
+    """A `torch.profiler` window (`activities`, CPU and CUDA by default)
+    that on a card opens with LEAD_IN spin kernels (`torch.cuda._sleep(0)`)
+    and a sync.  A process that has traced much before loses the first
+    device records of a later trace, more of them the more it traced
+    (`--trace-loss` measures it: a fused window's first kernels, a kernel
+    A launch among them, or a short trace's every kernel); the lead-in
+    takes that loss.  After the
+    window, `events` holds the trace's events without the lead-in's
+    device records and `lost` the count of those the trace lost (LEAD_IN
+    when it lost them all: the traced work may then have lost records
+    too, which the caller's counts show)."""
+
+    def __init__(self, torch, activities=None, lead_in=True):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.torch = torch
+        self.lead = lead_in and torch.cuda.is_available()
+        self.prof = profile(activities=activities
+                            or [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.events, self.lost = [], 0
+
+    def __enter__(self):
+        self.prof.__enter__()
+        if self.lead:
+            for _ in range(LEAD_IN):
+                self.torch.cuda._sleep(0)
+            self.torch.cuda.synchronize()
+        return self
+
+    def __exit__(self, *exc):
+        self.prof.__exit__(*exc)
+        if exc[0] is not None:
+            return False
+        events = list(self.prof.events())
+        lead = []
+        if self.lead:   # the lead-in precedes every other device record
+            for e in sorted((e for e in events if on_card(e)),
+                            key=lambda e: e.time_range.start):
+                if "spin_kernel" not in e.name:
+                    break
+                lead.append(e)
+            self.lost = LEAD_IN - len(lead)
+        skip = set(map(id, lead))
+        self.events = [e for e in events if id(e) not in skip]
+        return False
+
+
 def device_busy(events):
     """Union of the device intervals of `events`, in us."""
     busy, end = 0.0, None
@@ -1781,8 +1880,6 @@ def fused_window(torch, eng, trace, n_layers, fused_step, tag):
     device busy ms per step and idle share, kernels by device time, and
     kernels A and B per step (2 and `n_layers`, counted from the device
     events); `fused_step` is the unprofiled ms per fused step."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.serve.engine import Request
 
     for i, p, mn in trace:
@@ -1793,21 +1890,23 @@ def fused_window(torch, eng, trace, n_layers, fused_step, tag):
     chunks = 2
     steps = chunks * CHUNK
     want = {"nbbs_step_kernel": 2, "paged_decode_kernel": n_layers}
+    lost = []
     for _ in range(3):   # a trace now and then comes back without its kernels
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with traced(torch) as tr:
             t0 = time.perf_counter()
             for _ in range(chunks):
                 eng.decode_steps(CHUNK, fused=True)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.events()
-                  if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        lost.append(tr.lost)
+        events = [e for e in tr.events if on_card(e)]
         counts = {k: sum(k in e.name for e in events) for k in want}
         if counts == {k: n * steps for k, n in want.items()}:
             break
     else:
         raise AssertionError(f"device events of kernels A and B in {steps} fused steps: "
-                             f"{counts}, expected {want} per step")
+                             f"{counts}, expected {want} per step (lead-in records lost "
+                             f"by each trace: {lost} of {LEAD_IN})")
     busy = device_busy(events)
     by_name: dict = {}
     for e in events:
@@ -1827,6 +1926,7 @@ def fused_window(torch, eng, trace, n_layers, fused_step, tag):
         device_idle_share=1 - busy / 1e3 / wall_ms,
         device_idle_share_vs_unprofiled_step=1 - busy_step / fused_step,
         device_events=len(events), kernels_per_step=len(events) / steps, kernels=ours,
+        lead_in_lost=lost,
         top_device_ms_per_step=[(n, t / 1e3 / steps) for n, t in top],
     )
     log(f"[{tag}] S=1 fused window ({chunks} graph replays of {CHUNK} steps): "
@@ -1834,7 +1934,8 @@ def fused_window(torch, eng, trace, n_layers, fused_step, tag):
         f"({fused_step:.3f} without), device busy {busy_step:.3f} ms/step, idle share "
         f"{out['device_idle_share']:.4f} (against the unprofiled step "
         f"{out['device_idle_share_vs_unprofiled_step']:.4f}), "
-        f"{out['kernels_per_step']:.1f} kernels/step")
+        f"{out['kernels_per_step']:.1f} kernels/step; lead-in records lost by the "
+        f"traces: {lost} of {LEAD_IN}")
     for name, k in ours.items():
         log(f"[{tag}]   {name}: {k['launches_per_step']} launches/step, "
             f"{k['ms_per_step']:.4f} ms/step, {k['ms_per_launch']} ms/launch")
@@ -2715,7 +2816,7 @@ def train_full(torch, dev, cfg):
     masters: steady ms per step (CUDA events), the optimizer's share,
     tokens/s, model TFLOP/s (6 N T over the step), peak memory, losses
     and grad norms, then one profiled step (device time by kernel family)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from repro_torch.launch.train import train_fns
     from repro_torch.optim import adamw
@@ -2797,12 +2898,12 @@ def train_full(torch, dev, cfg):
 
     # device events only: the CPU's 100k-odd op events take long to gather
     acts = [ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU]
-    with profile(activities=acts) as prof:
+    with traced(torch, acts) as tr:
         t0 = time.perf_counter()
         state, m = step_fn(state, r["steps"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    events = [e for e in tr.events if on_card(e)]
     busy = device_busy(events) / 1e3
     kinds = kernel_kinds(events)
     by_name: dict = {}
@@ -3095,7 +3196,7 @@ def ssm_serve(torch, dev, name):
     steady ms per decode step (CUDA events), decode tokens/s, peak
     memory, and one profiled step (launches, device idle share).
     Returns (the row, the parameters)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from repro_torch.configs import get_config
     from repro_torch.models import rwkv as rwkv_lib
@@ -3155,12 +3256,12 @@ def ssm_serve(torch, dev, name):
     for _ in range(3):
         run_cache = copy(snap)
         torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
+        with traced(torch, acts) as tr:
             t0 = time.perf_counter()
             lg, run_cache = decode_step(cfg, params, run_cache, tok, dtype=bf16)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.events()
+        events = [e for e in tr.events
                   if str(getattr(e, "device_type", "")).endswith(kind)]
         if events:
             break
@@ -3945,7 +4046,544 @@ def phase_dist(torch, dev, report):
 
 
 # ---------------------------------------------------------------------------
-# Phase 13: the dry run on a fake 256/512-rank world, the counter on the card
+# Phase 13: the example twins on the card
+# ---------------------------------------------------------------------------
+
+# the serve_paged twin's ring for the snapshot the obsdump twin renders
+EXAMPLES_RING = 4096
+# s for the elastic twin's 8 gloo ranks together
+EXAMPLES_ELASTIC_TIMEOUT = 300
+
+
+def _obsdump(args):
+    """`python -m repro_torch.tools.obsdump ARGS`: its stdout."""
+    r = subprocess.run([sys.executable, "-m", "repro_torch.tools.obsdump", *args],
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=str(SRC)))
+    if r.returncode != 0:
+        raise RuntimeError(f"obsdump {args} exited {r.returncode}: {r.stderr[-3000:]}")
+    return r.stdout
+
+
+def phase_examples(torch, dev, report):
+    """`python -m repro_torch.examples.*` and the obsdump twin, each
+    through its function: quickstart and train_tiny_lm on the card,
+    serve_paged at full width in bf16 with the event ring, obsdump on
+    the snapshot it wrote, elastic_restart on 8 gloo ranks of this
+    machine's CPU (one card holds one NCCL rank)."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import elastic_restart, quickstart, serve_paged, train_tiny_lm
+    from repro_torch.kernels import nbbs_alloc
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.transformer import init_params
+    from repro_torch.obs.trace_export import validate_trace
+
+    out = report["examples"] = {"card": report.get("card")}
+    out_dir = ROOT / "chiprun_out" / "examples"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def printed(name):
+        lines = out.setdefault("printed", {}).setdefault(name, [])
+        return lambda text: lines.extend(str(text).splitlines())
+
+    # quickstart: kernels 4 and 3 on §4 and §6
+    nbbs_alloc.wavefront_alloc_launches = 0
+    nbbs_alloc.wavefront_step_launches = 0
+    t = time.perf_counter()
+    nums = quickstart.run(dev, out=printed("quickstart"))
+    launches = {"nbbs_wavefront_alloc": nbbs_alloc.wavefront_alloc_launches,
+                "nbbs_wavefront_step": nbbs_alloc.wavefront_step_launches}
+    out["quickstart"] = dict(numbers=nums, launches=launches, s=time.perf_counter() - t)
+    log(f"[examples] quickstart on the card: {nums}; launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"quickstart: a kernel was not launched: {launches}")
+
+    # serve_paged: stablelm-3b at full width in bf16, the ring on
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("stablelm-3b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                         dtype=torch.bfloat16)
+    snap = out_dir / "serve_paged.snapshot.json"
+    nbbs_alloc.launches, pa.launches = 0, 0
+    t = time.perf_counter()
+    res = serve_paged.run(cfg, params, dev, torch.bfloat16, ring=EXAMPLES_RING,
+                          snapshot=str(snap), out=printed("serve_paged"))
+    launches = {"nbbs_pool_step": nbbs_alloc.launches, "paged_attention": pa.launches}
+    host, jit = res["host"], res["jit"]
+    same = sum(host["out_tokens"][i] == jit["out_tokens"][i] for i in host["out_tokens"])
+    out["serve_paged"] = dict(
+        arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, dtype="bfloat16",
+        ring=EXAMPLES_RING, launches=launches, s=time.perf_counter() - t,
+        host={k: v for k, v in host.items() if k != "out_tokens"},
+        jit={k: v for k, v in jit.items() if k != "out_tokens"},
+        requests_with_equal_tokens=same)
+    log(f"[examples] serve_paged, {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}), bf16, {report.get('card')}: ServeEngine {host['tokens']} tokens, "
+        f"{host['tokens_per_s']:.1f} tok/s, fully coalesced {host['fully_coalesced']}; "
+        f"JitServeEngine {jit['tokens']} tokens, {jit['tokens_per_s']:.1f} tok/s (graph "
+        f"capture included), free {jit['free_pages']}/{serve_paged.GEOM['num_pages']}; "
+        f"equal tokens in {same} of {len(host['out_tokens'])} requests; launches {launches}")
+    if not host["fully_coalesced"] or jit["free_pages"] != serve_paged.GEOM["num_pages"]:
+        raise AssertionError(f"serve_paged: pages left in use: {out['serve_paged']}")
+    if host["completed"] != serve_paged.N_REQUESTS or jit["completed"] != serve_paged.N_REQUESTS:
+        raise AssertionError(f"serve_paged: not every request served: {out['serve_paged']}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"serve_paged: a kernel was not launched: {launches}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # obsdump on that snapshot: the table, the events, a valid trace
+    table = _obsdump([str(snap)])
+    events = _obsdump([str(snap), "--events"])
+    trace_path = out_dir / "serve_paged.trace.json"
+    wrote = _obsdump([str(snap), "--trace", str(trace_path)])
+    trace = json.loads(trace_path.read_text())
+    validate_trace(trace)
+    n_events = int(events.split()[0])
+    n_steps = sum(1 for e in trace["traceEvents"]
+                  if e["ph"] == "X" and e["name"].startswith("step "))
+    out["obsdump"] = dict(table_lines=len(table.splitlines()), ring_events=n_events,
+                          trace_events=len(trace["traceEvents"]), step_spans=n_steps,
+                          wrote=wrote.strip())
+    (out_dir / "serve_paged.metrics.txt").write_text(table)
+    (out_dir / "serve_paged.events.txt").write_text(events)
+    log(f"[examples] obsdump twin on the snapshot: a table of {out['obsdump']['table_lines']} "
+        f"lines, {n_events} ring events, a trace of {len(trace['traceEvents'])} events "
+        f"({n_steps} step spans) that validates")
+    if "alloc_pages" not in table or n_events <= 0 or n_steps != jit["steps"]:
+        raise AssertionError(f"obsdump: {out['obsdump']}, jit steps {jit['steps']}")
+
+    # train_tiny_lm on the card, reduced by design
+    t = time.perf_counter()
+    tr = train_tiny_lm.run(dev, out=printed("train_tiny_lm"))
+    out["train_tiny_lm"] = dict({k: v for k, v in tr.items() if k not in ("steps", "losses")},
+                                s=time.perf_counter() - t)
+    log(f"[examples] train_tiny_lm on the card: {tr['steps_run']} steps, first loss "
+        f"{tr['first_loss']:.4f}, last {tr['last_loss']:.4f} (means of 10: "
+        f"{tr['first_mean']:.4f} -> {tr['last_mean']:.4f}), {tr['restarts']} restart, "
+        f"{out['train_tiny_lm']['s']:.1f} s")
+    if tr["restarts"] != 1:
+        raise AssertionError(f"train_tiny_lm: {tr['restarts']} restarts")
+
+    # elastic_restart: 8 gloo ranks of this machine's CPU
+    t = time.perf_counter()
+    el = elastic_restart.run("cpu", timeout=EXAMPLES_ELASTIC_TIMEOUT,
+                             out=printed("elastic_restart"))
+    out["elastic_restart"] = dict(el, s=time.perf_counter() - t)
+    log(f"[examples] elastic_restart, {el['ranks']} gloo ranks, {el['meshes'][0]} -> "
+        f"{el['meshes'][1]}: losses {[round(x, 6) for x in el['losses']]}, unsharded "
+        f"{[round(x, 6) for x in el['unsharded']]}, largest relative difference "
+        f"{el['max_rel']:.3g}, {out['elastic_restart']['s']:.1f} s")
+    for name, lines in out["printed"].items():
+        for line in lines:
+            log(f"[examples {name}] {line}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the sharded paths on gloo ranks of this machine's CPU
+# ---------------------------------------------------------------------------
+
+# Each case runs on a world of RANKS_N gloo ranks (subprocesses,
+# `repro_torch.launch.ranks`: one thread each, CUDA hidden) at the reduced
+# widths in fp32 under this machine's torch, and is held against the same
+# case unsharded in this process with the tolerances of the CPU files that
+# hold it against JAX (tests/test_torch_distribution*.py,
+# tests/test_torch_moe_einsum_sharded.py): losses within 1e-5 relative,
+# each gradient leaf within `grad_tol` of its largest element, the
+# trainer's parameters within 5 x peak_lr and 1e-3 of each leaf's largest,
+# the pipeline within 1e-5 (its gradient 1e-4), greedy tokens equal and
+# logits within 1e-5 of their largest, compressed_psum bit-equal.
+RANKS_N = 4
+RANKS_TIMEOUT = 300      # s for the ranks together
+RANKS_PG_TIMEOUT = 120   # s a collective waits for a peer before it raises
+RANKS_SEED = 0
+RANKS_BATCH = dict(batch=8, seq=16)
+RANKS_OPT = dict(peak_lr=3e-3, warmup_steps=2, total_steps=6)
+RANKS_STEPS = 3          # steps of the trainer case; the elastic case: 3 + 3
+RANKS_SERVE = dict(batch=4, prompt=16, max_len=32, steps=4)
+RANKS_PSUM = 1000        # elements of each rank's gradient
+RANKS_PP = dict(layers=8, n_micro=4, mb=2, d=16)
+_POD = ((2, 2), ("data", "model"))
+_MOE = "phi3.5-moe-42b-a6.6b"
+RANKS_CASES = {
+    "grads-stablelm-3b": dict(kind="grads", arch="stablelm-3b", mesh=_POD),
+    "grads-phi3.5-moe-scatter": dict(kind="grads", arch=_MOE, mesh=_POD),
+    "grads-phi3.5-moe-einsum": dict(kind="grads", arch=_MOE, mesh=_POD,
+                                    replace=dict(dispatch_mode="einsum", dispatch_group=32)),
+    "grads-zamba2-1.2b": dict(kind="grads", arch="zamba2-1.2b", mesh=_POD, grad_tol=2e-5),
+    "grads-rwkv6-7b": dict(kind="grads", arch="rwkv6-7b", mesh=_POD, grad_tol=2e-5),
+    "grads-stablelm-3b-multipod": dict(kind="grads", arch="stablelm-3b",
+                                       mesh=((2, 2, 1), ("pod", "data", "model")),
+                                       axes=dict(dp=("pod", "data"))),
+    "train-steps-stablelm-3b": dict(kind="steps", arch="stablelm-3b", mesh=_POD),
+    "elastic-(2,2)-to-(1,4)": dict(kind="elastic", arch="stablelm-3b", mesh=_POD,
+                                   to=((1, 4), ("data", "model"))),
+    "compressed-psum": dict(kind="psum", mesh=_POD),
+    "pipeline-2-stages": dict(kind="pp", mesh=((2, 2), ("pipe", "data"))),
+    "serve-stablelm-3b": dict(kind="serve", arch="stablelm-3b", mesh=_POD),
+    "serve-zamba2-1.2b": dict(kind="serve", arch="zamba2-1.2b", mesh=_POD),
+}
+
+# runs on every rank after `launch/ranks.py`'s preamble; `chip_smoke` is
+# this file, on the ranks' path
+RANKS_SCRIPT = """
+import json, time, traceback
+import chip_smoke
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.launch.ranks import save_tree
+
+inp = dict(np.load(os.path.join(OUT, "inputs.npz")))
+meshes, status = {}, {}
+
+
+def mesh_of(spec):
+    key = (tuple(spec[0]), tuple(spec[1]))
+    if key not in meshes:
+        meshes[key] = make_test_mesh(*key)
+    return meshes[key]
+
+
+for key, case in chip_smoke.RANKS_CASES.items():
+    t0 = time.perf_counter()
+    try:
+        res = chip_smoke.ranks_case(torch, case, inp, mesh_of, OUT)
+        if RANK == 0:
+            save_tree(os.path.join(OUT, key + ".npz"), res)
+        err = None
+    except Exception:
+        err = traceback.format_exc()
+        print(f"case {key} failed on rank {RANK}:\\n{err}", flush=True)
+    status[key] = dict(seconds=time.perf_counter() - t0, error=err)
+    if RANK == 0:
+        with open(os.path.join(OUT, "status.json"), "w") as f:
+            json.dump(status, f)
+    dist.barrier()
+print("RANK OK")
+"""
+
+
+def ranks_inputs(np) -> dict:
+    """The cases' inputs, from numpy seeds; every rank reads them."""
+    rng = np.random.default_rng(3)
+    b, s = RANKS_BATCH["batch"], RANKS_BATCH["seq"]
+    inp = {"tokens": rng.integers(0, 256, (b, s)).astype(np.int32),
+           "labels": rng.integers(0, 256, (b, s)).astype(np.int32)}
+    rng = np.random.default_rng(7)
+    psum = rng.standard_normal((RANKS_N, RANKS_PSUM)).astype(np.float32)
+    psum[:, :7] = 0.0            # an all-zero start of a block: zero scales
+    psum[1, 300] = 40.0          # one large element sets its block's max
+    inp["psum"] = psum
+    c = RANKS_PP
+    inp["pp_w"] = (rng.standard_normal((c["layers"], c["d"], c["d"])) * 0.3).astype(np.float32)
+    inp["pp_x"] = rng.standard_normal((c["n_micro"], c["mb"], c["d"])).astype(np.float32)
+    inp["pp_t"] = rng.standard_normal((c["n_micro"], c["mb"], c["d"])).astype(np.float32)
+    rng = np.random.default_rng(10)
+    inp["prompts"] = rng.integers(0, 256, (RANKS_SERVE["batch"], RANKS_SERVE["prompt"])
+                                  ).astype(np.int32)
+    return inp
+
+
+def _psum_reference(torch, rows):
+    """compressed_psum's sum over the ranks holding `rows`: the shared
+    per-block scale, each rank's int8 payload, their int32 sum."""
+    from repro_torch.optim.compression import _blocks, _unblocks
+
+    blocks = [_blocks(r)[0] for r in rows]
+    scale = torch.stack([b.abs().amax(dim=1) for b in blocks]).amax(dim=0) / 127.0
+    safe = torch.where(scale == 0, 1.0, scale)
+    qsum = sum(torch.clamp(torch.round(b / safe[:, None]), -127, 127).to(torch.int8)
+               .to(torch.int32) for b in blocks)
+    return _unblocks(qsum.float() * scale[:, None], rows[0].shape)
+
+
+def ranks_case(torch, case, inp, mesh_of=None, out_dir=None) -> dict:
+    """One case of phase ranks as numpy arrays: on the ranks with
+    `mesh_of` (a mesh for a (shape, names) pair), unsharded in one
+    process without it."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM, place_on_mesh
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models.sharding import (MeshAxes, P, named_shardings, param_specs,
+                                             placements, shard_tree)
+    from repro_torch.models.transformer import decode_step, init_params, prefill, train_loss
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import compressed_psum
+    from repro_torch.train.pp import make_pp_loss, pipeline_apply
+    from repro_torch.train.trainer import TrainConfig, TrainState, make_train_step
+    from repro_torch.tree_util import flatten, leaves
+
+    kind = case["kind"]
+    mesh = mesh_of(case["mesh"]) if mesh_of else None
+    axes = MeshAxes(**case.get("axes", {})) if mesh_of else None
+
+    def scope(on=mesh):
+        return use_mesh(on) if mesh_of else contextlib.nullcontext()
+
+    def whole(x):
+        x = x.detach()
+        return (x.full_tensor() if isinstance(x, DTensor) else x).numpy()
+
+    def model():
+        cfg = dataclasses.replace(get_config(case["arch"]).reduced(), **case.get("replace", {}))
+        return cfg, init_params(cfg, torch.Generator().manual_seed(RANKS_SEED), "cpu")
+
+    def place(tree, on):
+        return shard_tree(tree, param_specs(axes, tree), on) if mesh_of else tree
+
+    if kind == "grads":
+        cfg, params = model()
+        params = place(params, mesh)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        batch = {k: inp[k] for k in ("tokens", "labels")}
+        with scope():
+            batch = (place_on_mesh(batch, mesh, axes.dp) if mesh_of
+                     else {k: torch.from_numpy(v) for k, v in batch.items()})
+            loss = train_loss(cfg, params, batch, axes=axes, dtype=torch.float32, remat=True)
+            loss.backward()
+        return dict({f"g{i:03d}": whole(p.grad) for i, p in enumerate(leaves(params))},
+                    loss=whole(loss))
+
+    if kind in ("steps", "elastic"):
+        cfg, params = model()
+        micro = 2 if kind == "steps" else 1
+        step = make_train_step(cfg, TrainConfig(microbatches=micro, dtype=torch.float32,
+                                                constrain_grads=True,
+                                                optimizer=AdamWConfig(**RANKS_OPT)), axes)
+        data = SyntheticLM(cfg.vocab_size, RANKS_BATCH["seq"], RANKS_BATCH["batch"], seed=0)
+        state = place(TrainState(params, adamw.init(params), {}), mesh)
+        losses = []
+
+        def run(state, steps, on):
+            with scope(on):
+                for i in steps:
+                    state, m = step(state, data.batch_at(i))
+                    losses.append(float(m["loss"]))
+            return state
+
+        state = run(state, range(RANKS_STEPS), mesh)
+        if kind == "steps":
+            return dict({f"p{i:03d}": whole(x) for i, x in enumerate(leaves(state.params))},
+                        losses=np.array(losses))
+        if mesh_of:   # checkpoint on (2, 2), restore onto the other mesh
+            ckpt = CheckpointManager(os.path.join(out_dir, "ckpt_elastic"), async_io=False)
+            ckpt.save(RANKS_STEPS, state)
+            to = mesh_of(case["to"])
+            state = ckpt.restore(ckpt.latest_step(), state,
+                                 shardings=named_shardings(param_specs(axes, state), to))
+            if not all(t.device_mesh is to for t in flatten(state)[0]):
+                raise AssertionError("a restored leaf is not on the new mesh")
+            mesh = to
+        run(state, range(RANKS_STEPS, 2 * RANKS_STEPS), mesh)
+        return dict(losses=np.array(losses))
+
+    if kind == "psum":
+        rows = torch.from_numpy(inp["psum"])
+        names = tuple(case["mesh"][1])
+        out = {}
+        for axis in (names[0], names[1], tuple(names)):
+            key = "+".join(axis) if isinstance(axis, tuple) else axis
+            if mesh_of:   # this rank's sum, gathered from every rank
+                with scope():
+                    mine = compressed_psum(rows[dist.get_rank()].clone(), axis)
+                every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+                dist.all_gather(every, mine)
+                out[key] = torch.stack(every).numpy()
+                continue
+            shape = case["mesh"][0]   # rank r at (r // shape[1], r % shape[1])
+            coord = [divmod(r, shape[1]) for r in range(len(rows))]
+            dims = ((0,) if axis == names[0] else (1,) if axis == names[1] else (0, 1))
+            out[key] = torch.stack([
+                _psum_reference(torch, [rows[q] for q in range(len(rows))
+                                        if all(coord[q][d] == coord[r][d]
+                                               for d in (0, 1) if d not in dims)])
+                for r in range(len(rows))]).numpy()
+        return out
+
+    if kind == "pp":
+        def body(w, h):
+            return torch.tanh(h @ w)
+
+        x = torch.from_numpy(inp["pp_x"])
+        res = {}
+        for mode in ("sharded", "whole"):
+            w = torch.from_numpy(inp["pp_w"]).clone()
+            if mesh_of and mode == "sharded":
+                from torch.distributed.tensor import distribute_tensor
+                w = distribute_tensor(w, mesh, placements(P("pipe"), mesh))
+            w.requires_grad_(True)
+            if mesh_of:
+                y = pipeline_apply(body, w, x, mesh)
+            else:
+                y = x
+                for layer in range(w.shape[0]):
+                    y = body(w[layer], y)
+            torch.square(y).sum().backward()
+            res["y_" + mode], res["g_" + mode] = whole(y), whole(w.grad)
+        w = torch.from_numpy(inp["pp_w"]).clone().requires_grad_(True)
+        t = torch.from_numpy(inp["pp_t"])
+        if mesh_of:
+            loss = make_pp_loss(body, RANKS_PP["n_micro"])(w, x, t, mesh)
+        else:
+            y = x
+            for layer in range(w.shape[0]):
+                y = body(w[layer], y)
+            loss = torch.mean(torch.square(y - t))
+        loss.backward()
+        res["loss"], res["loss_g"] = whole(loss), whole(w.grad)
+        return res
+
+    if kind == "serve":
+        cfg, params = model()
+        params = place(params, mesh)
+        c = RANKS_SERVE
+        res, toks = {}, []
+        with scope():
+            lg, cache = prefill(cfg, params, {"tokens": torch.from_numpy(inp["prompts"])},
+                                c["max_len"], axes=axes, dtype=torch.float32)
+            res["prefill"] = whole(lg)
+            for t in range(c["steps"]):
+                last = res["prefill"] if t == 0 else res[f"step{t - 1}"]
+                nxt = torch.from_numpy(last.argmax(-1).astype(np.int32))
+                toks.append(nxt.numpy())
+                lg, cache = decode_step(cfg, params, cache, nxt, axes=axes, dtype=torch.float32)
+                res[f"step{t}"] = whole(lg)
+        res["tokens"] = np.stack(toks, 1)
+        return res
+    raise ValueError(kind)
+
+
+def _rel_to_max(got, want) -> float:
+    import numpy as np
+
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-30)
+
+
+def ranks_compare(case, got, want) -> tuple:
+    """(ok, detail) of one case: the ranks' arrays against unsharded."""
+    import numpy as np
+
+    kind = case["kind"]
+    if sorted(got) != sorted(want):
+        return False, f"keys differ: {sorted(set(got) ^ set(want))}"
+    if any(np.shape(got[k]) != np.shape(want[k]) for k in want):
+        return False, "shapes differ"
+    if kind == "grads":
+        tol = case.get("grad_tol", 1e-5)
+        loss = abs(float(got["loss"]) - float(want["loss"])) / abs(float(want["loss"]))
+        errs = [_rel_to_max(got[k], want[k]) for k in want if k != "loss"]
+        equal = sum(np.array_equal(got[k], want[k]) for k in want if k != "loss")
+        return (loss <= 1e-5 and max(errs) <= tol,
+                f"loss {float(got['loss']):.6f} rel {loss:.2e} (limit 1e-5); worst of "
+                f"{len(errs)} gradient leaves {max(errs):.2e} of its max (limit {tol:g}), "
+                f"{equal} bit-equal")
+    if kind in ("steps", "elastic"):
+        g, w = got["losses"], want["losses"]
+        rel = float(np.max(np.abs(g - w) / np.abs(w)))
+        ok, detail = rel <= 1e-5, f"{len(w)} losses, worst rel {rel:.2e} (limit 1e-5)"
+        if kind == "steps":
+            lim = 5 * RANKS_OPT["peak_lr"] + 1e-7
+            worst = max(float(np.abs(got[k] - want[k]).max()) for k in want if k != "losses")
+            leaf = max(_rel_to_max(got[k], want[k]) for k in want if k != "losses")
+            ok = ok and worst < lim and leaf <= 1e-3
+            detail += (f"; parameters after {RANKS_STEPS} steps: worst {worst:.2e} (limit "
+                       f"{lim:g}), {leaf:.2e} of a leaf's max (limit 1e-3)")
+        return ok, detail
+    if kind == "psum":
+        equal = {k: bool(np.array_equal(got[k].view(np.uint32), want[k].view(np.uint32)))
+                 for k in want}
+        return all(equal.values()), f"bit-equal over each axis: {equal}"
+    if kind == "pp":
+        errs = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
+        lim = dict(y_sharded=1e-5, y_whole=1e-5, g_sharded=1e-4, g_whole=1e-4, loss_g=1e-4,
+                   loss=1e-5 * abs(float(want["loss"])))
+        return (all(errs[k] <= lim[k] for k in want),
+                ", ".join(f"{k} {errs[k]:.1e} (limit {lim[k]:.0e})" for k in sorted(want)))
+    if kind == "serve":
+        same = bool(np.array_equal(got["tokens"], want["tokens"]))
+        errs = [_rel_to_max(got[k], want[k]) for k in want if k != "tokens"]
+        return (same and max(errs) <= 1e-5,
+                f"greedy tokens equal {same}; logits of prefill and {len(errs) - 1} decode "
+                f"steps, worst {max(errs):.2e} of their max (limit 1e-5)")
+    raise ValueError(kind)
+
+
+def phase_ranks(torch, dev, report, out_dir=None):
+    """The sharded paths on RANKS_N gloo ranks under this machine's torch,
+    each case against the unsharded port in this process (computed while
+    the ranks run); one line per case."""
+    import numpy as np
+
+    from repro_torch.launch.ranks import Ranks, load_tree
+
+    out_dir = Path(out_dir or ROOT / "chiprun_out" / "ranks")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    inp = ranks_inputs(np)
+    np.savez(out_dir / "inputs.npz", **inp)
+    t0 = time.perf_counter()
+    ranks = Ranks(RANKS_N, RANKS_SCRIPT, out_dir, path=(str(ROOT),),
+                  pg_timeout=RANKS_PG_TIMEOUT)
+    want, ref_s, crashed = {}, {}, None
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        for key, case in RANKS_CASES.items():
+            t = time.perf_counter()
+            want[key] = ranks_case(torch, case, inp)
+            ref_s[key] = time.perf_counter() - t
+    finally:
+        torch.set_num_threads(threads)
+        try:
+            ranks.wait(RANKS_TIMEOUT)
+        except RuntimeError as exc:
+            crashed = exc
+    wall = time.perf_counter() - t0
+    status_path = out_dir / "status.json"
+    status = json.loads(status_path.read_text()) if status_path.exists() else {}
+    rows, failed = [], []
+    log(f"[ranks] {RANKS_N} gloo ranks on this machine's CPU, torch {torch.__version__}, "
+        f"fp32 at the reduced widths, each case against the unsharded port in this process")
+    for key, case in RANKS_CASES.items():
+        st = status.get(key)
+        if st is None:
+            ok, detail, secs = False, "not reached: the ranks ended before it", None
+        elif st["error"]:
+            ok, detail, secs = False, st["error"].strip().splitlines()[-1], st["seconds"]
+        else:
+            ok, detail = ranks_compare(case, load_tree(out_dir / f"{key}.npz"), want[key])
+            secs = st["seconds"]
+        rows.append(dict(case=key, mesh=case["mesh"], ok=ok, detail=detail,
+                         error=st["error"] if st else None, seconds=secs,
+                         unsharded_s=ref_s.get(key)))
+        if not ok:
+            failed.append(key)
+        host = "-" if secs is None else f"{secs:.2f}"
+        log(f"[ranks] {key} on {tuple(case['mesh'][0])} {case['mesh'][1]}: "
+            f"{'ok' if ok else 'FAILED'}: {detail}; {host} s on the ranks, "
+            f"{ref_s.get(key, 0):.2f} s unsharded")
+    report["ranks"] = dict(torch=torch.__version__, n=RANKS_N, rows=rows, seconds=wall,
+                           crashed=None if crashed is None else str(crashed)[-3000:])
+    log(f"[ranks] {len(rows) - len(failed)} of {len(rows)} cases ok in {wall:.1f} s")
+    if crashed is not None:
+        raise AssertionError(f"ranks: {str(crashed)[-3000:]}")
+    if failed:
+        raise AssertionError(f"ranks: cases failed: {failed}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the dry run on a fake 256/512-rank world, the counter on the card
 # ---------------------------------------------------------------------------
 
 # (arch, shape, mesh, variant): one dry-run process each, side by side
@@ -4159,7 +4797,7 @@ def phase_dryrun(torch, dev, report):
 
 
 # ---------------------------------------------------------------------------
-# Phase 14: flash attention (kernel 5) through ops.flash_attention
+# Phase 16: flash attention (kernel 5) through ops.flash_attention
 # ---------------------------------------------------------------------------
 
 FLASH_S = 4096         # stablelm-3b and phi3-medium rows
@@ -4234,17 +4872,15 @@ def device_kernels(torch, fn, reps=3, attempts=5):
     calls of fn ran, from a `torch.profiler` trace; {} when `attempts`
     traces in a row came back without device events (seen late in a
     process that traced much before)."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(attempts):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with traced(torch) as tr:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         out = {}
-        for e in prof.events():
-            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+        for e in tr.events:
+            if on_card(e):
                 ms = (e.time_range.end - e.time_range.start) / 1e3 / reps
                 out[e.name] = out.get(e.name, 0.0) + ms
         if out:
@@ -4444,6 +5080,8 @@ def main(argv) -> int:
     name = torch.cuda.get_device_name(0)
     log(f"[device] {card}")
     log(f"[device] {name}; torch {torch.__version__} cuda {torch.version.cuda}")
+    if argv[:1] == ["--trace-loss"]:
+        return trace_loss(torch, dev, argv)
     if argv:
         return ab(torch, dev, card, argv)
     report = {"card": card, "device": name, "torch": torch.__version__}
@@ -4478,6 +5116,8 @@ def main(argv) -> int:
         ("train", lambda: phase_train(torch, dev, report)),
         ("ssm", lambda: phase_ssm(torch, dev, report)),
         ("dist", lambda: phase_dist(torch, dev, report)),
+        ("examples", lambda: phase_examples(torch, dev, report)),
+        ("ranks", lambda: phase_ranks(torch, dev, report)),
         ("dryrun", lambda: phase_dryrun(torch, dev, report)),
         ("flash", lambda: phase_flash(torch, dev, report, state)),
     ]

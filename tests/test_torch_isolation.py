@@ -46,6 +46,14 @@ def test_dry_run_and_counter_are_scanned():
             "src/repro_torch/roofline/__init__.py"} <= names
 
 
+def test_twins_of_examples_and_tools_are_scanned():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"src/repro_torch/examples/{n}.py" for n in
+            ("__init__", "quickstart", "serve_paged", "train_tiny_lm", "elastic_restart")} <= names
+    assert {"src/repro_torch/tools/__init__.py", "src/repro_torch/tools/obsdump.py",
+            "src/repro_torch/launch/ranks.py"} <= names
+
+
 def test_port_dynamic_imports_stay_in_port():
     """registry.get_config builds module names at run time: they must
     name the port's configs package."""

@@ -6,7 +6,8 @@ junk offsets, stale handles and double frees) next to
 `repro/core/nbbs_jax.py`, in both tree layouts: tree words (through
 int64), index[], offsets, shards, ok and freed flags must be identical
 after every call.  Then `examples/quickstart.py` §3-§6 through the port,
-with the numbers JAX gives and what the example asserts.
+with the numbers JAX gives and what the example asserts, and the
+numbers the port's quickstart twin returns.
 """
 
 import jax
@@ -22,6 +23,7 @@ from repro.kernels.nbbs_alloc import wavefront_alloc_pallas
 from repro_torch.core import concurrent as tconc
 from repro_torch.core import nbbs as tnbbs
 from repro_torch.core import pool as tpool
+from repro_torch.examples import quickstart
 from repro_torch.kernels import ops as tops
 from test_torch_layout import _eq, _t
 from test_torch_single_tree import cfgs
@@ -131,7 +133,8 @@ def test_node_to_unit_offset():
 
 def test_quickstart_through_the_port():
     """examples/quickstart.py §3-§6 with repro_torch: the same numbers
-    as JAX, and what the example asserts."""
+    as JAX, and what the example asserts; the port's twin
+    (`repro_torch.examples.quickstart`) returns those numbers."""
     levels_np = np.random.default_rng(0).integers(5, 11, 32).astype(np.int32)
     # §3: 32 concurrent allocations on a depth-10 tree
     jcfg = jconc.TreeConfig(depth=10, max_level=0)
@@ -180,3 +183,13 @@ def test_quickstart_through_the_port():
     assert int(t6[3]["merged_writes"]) < int(st["merged_writes"])
     ptree, _, _ = tconc.wavefront_free(tp6, t6[0], t6[1], t6[2])
     assert not ptree.any()
+    # the port's quickstart twin returns the numbers JAX gives here
+    nums = quickstart.run("cpu", out=lambda *a: None)
+    assert nums == dict(
+        cas_attempts=nums["cas_attempts"], word_rmws=nums["word_rmws"],
+        committed=int(jok.sum()), rounds=int(jst["rounds"]),
+        merged_writes=int(jst["merged_writes"]), logical_rmws=int(jst["logical_rmws"]),
+        pool_committed=int(j5[3].sum()), pool_rounds=int(j5[4]["rounds"]),
+        pool_overflows=int(j5[4]["overflows"]), per_shard=per_shard.tolist(),
+        packed_words=jp6.n_state_words, unpacked_words=jcfg.n_state_words,
+        packed_merged_writes=int(j6[3]["merged_writes"]))
