@@ -79,6 +79,7 @@ from repro_torch.models.sharding import (
     sum_partials,
     zeros_on_mesh,
 )
+from repro_torch.obs.spans import layer_span
 
 # the weights JAX casts to the compute dtype (`.astype(dtype)`) at their matmul
 _MATMUL = {"wq", "wk", "wv", "wo", "w_gate", "w_in", "w_out",
@@ -410,15 +411,18 @@ def prefill(
     if cfg.family in ATTENTION_FAMILIES:
         for li, window in enumerate(window_array(cfg)):
             lp = layer_params(params, li)
-            h, k, v = _attention_prefill(cfg, lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
-                                         positions, window)
-            if cfg.post_norm:
-                h = rms_norm(h, lp["ln1_post"], cfg.norm_eps)
-            x = x + h
-            h = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.dispatch_mode, axes)
-            if cfg.post_norm:
-                h = rms_norm(h, lp["ln2_post"], cfg.norm_eps)
-            x = x + h
+            with layer_span("attention"):
+                h, k, v = _attention_prefill(cfg, lp["attn"],
+                                             rms_norm(x, lp["ln1"], cfg.norm_eps), positions,
+                                             window)
+                if cfg.post_norm:
+                    h = rms_norm(h, lp["ln1_post"], cfg.norm_eps)
+                x = x + h
+            with layer_span("ffn"):
+                h = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.dispatch_mode, axes)
+                if cfg.post_norm:
+                    h = rms_norm(h, lp["ln2_post"], cfg.norm_eps)
+                x = x + h
             write_prompt_kv(cache["k"], li, k)
             write_prompt_kv(cache["v"], li, v)
     elif cfg.family == "hybrid":

@@ -49,9 +49,13 @@ or replay raises.  The host syncs where the JAX shim does, at admission
 (free lanes, `admitted`) and at drain.
 
 `JitServeEngine` logs its host phases (admission bursts, decode chunks,
-drains) as wall-clock spans, and `snapshot()` drains the metric totals,
-the ring's surviving window and the spans into the format that
-`obs/trace_export.py` renders as a Perfetto trace.
+drains) as wall-clock spans (`obs/spans.py`; with `trace=True` the spans
+inside them too, each a `serve.<name>` profiler range, and the device
+time of each graph replay and prefill), and `snapshot()` drains the
+metric totals, the ring's surviving window and the spans into the format
+that `obs/trace_export.py` renders as a Perfetto trace.  Every host read
+of the loop (one wait for the device each) is counted by site in
+`host_reads`, which the snapshot carries too.
 """
 
 from __future__ import annotations
@@ -59,7 +63,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
-import time
 from collections import Counter
 from typing import Dict, List, Optional
 
@@ -89,6 +92,7 @@ from repro_torch.models.transformer import ATTENTION_FAMILIES
 from repro_torch.obs import metrics as om
 from repro_torch.obs import ring as oring
 from repro_torch.obs.schema import ENGINE_METRICS
+from repro_torch.obs.spans import SpanLog
 from repro_torch.obs.trace_export import SNAPSHOT_VERSION
 from repro_torch.serve.engine import Request
 from repro_torch.serve.paged_decode import init_pool, paged_decode_step, serve_prefill
@@ -96,6 +100,10 @@ from repro_torch.serve.paged_decode import init_pool, paged_decode_step, serve_p
 Metrics = om.Metrics
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# the span of each host-read site of the loop (`JitServeEngine._read`):
+# the claim's counters are read with its result
+_SYNC_SPANS = {"fastpath": "sync.claim", "magazine": "sync.claim"}
 
 # CUDA graphs captured, keyed by (EngineConfig, chunk length) as JAX's
 # TRACE_COUNTS is by config: a fused chunk of a given length is captured
@@ -601,6 +609,7 @@ class JitServeEngine:
         magazines: int = 0,
         magazine_refill: int = 0,
         ring_capacity: int = 0,
+        trace: bool = False,
     ) -> None:
         if cfg.family not in ATTENTION_FAMILIES:  # before any pool is allocated
             raise ValueError("paged engine covers attention families")
@@ -645,19 +654,22 @@ class JitServeEngine:
         self.acc = _zero_metrics(self.ecfg, self.device)
         self._graphs: Dict[int, _ChunkGraph] = {}   # chunk length -> graph
         # host-phase span log for the trace exporter: wall-clock windows
-        # of admissions, decode chunks and drains, relative to
-        # construction
-        self.spans: List[Dict] = []
-        self._t_origin = time.perf_counter()
+        # of admissions, decode chunks and drains (with `trace`, the spans
+        # inside them), in seconds since `_t_origin`
+        self._log = SpanLog(lambda: self.stats["steps"], trace=trace,
+                            cuda=self.device.type == "cuda")
+        self.spans: List[Dict] = self._log.records
+        self._t_origin = self._log.origin
+        # host reads by site, kept apart from `stats`, which mirror the
+        # JAX engine's
+        self.host_reads: Counter = Counter()
 
-    def _now(self) -> float:
-        return time.perf_counter() - self._t_origin
-
-    def _record_span(self, phase: str, t0: float, step0: int, **extra):
-        self.spans.append({
-            "phase": phase, "t0": t0, "t1": self._now(),
-            "step0": step0, "step1": self.stats["steps"], **extra,
-        })
+    def _read(self, site: str, *tensors) -> List[np.ndarray]:
+        """Host copies of `tensors`: one read, counted by `site` in
+        `host_reads`, whose first copy waits for the device."""
+        self.host_reads[site] += 1
+        with self._log.span(_SYNC_SPANS.get(site, "sync." + site)):
+            return [t.cpu().numpy() for t in tensors]
 
     # -- admission ----------------------------------------------------
     def _pages_for(self, n_tokens: int) -> int:
@@ -674,26 +686,39 @@ class JitServeEngine:
         )
 
     def submit(self, req: Request) -> None:
+        self._log.submitted(req.req_id)
         self.waiting.append(req)
 
     def _free_lanes(self) -> List[int]:
-        seq = self.state.seq_id.cpu().numpy()
+        seq, = self._read("lanes", self.state.seq_id)
         return [int(i) for i in np.nonzero(seq < 0)[0]]
 
     def _admit(self) -> None:
-        t0, step0 = self._now(), self.stats["steps"]
-        admitted0 = self.stats["admitted"]
-        free = self._free_lanes()
-        while self.waiting and free:
-            req = self.waiting[0]
-            if self._oversized(req):
-                self.waiting.pop(0)
-                req.done = True
-                self.completed[req.req_id] = req
-                self.stats["rejected"] += 1
-                continue
-            need = self._pages_for(len(req.prompt) - 1)
-            st = self.state
+        with self._log.phase("admit") as ph:
+            admitted0 = self.stats["admitted"]
+            free = self._free_lanes()
+            while self.waiting and free:
+                req = self.waiting[0]
+                if self._oversized(req):
+                    self.waiting.pop(0)
+                    req.done = True
+                    self.completed[req.req_id] = req
+                    self.stats["rejected"] += 1
+                    self._log.forget(req.req_id)
+                    continue
+                with self._log.span("request", req=req.req_id):
+                    if not self._claim(req, free):
+                        break  # pool full: natural admission control
+            n_adm = self.stats["admitted"] - admitted0
+            if n_adm:
+                ph.keep(admitted=n_adm)
+
+    def _claim(self, req: Request, free: List[int]) -> bool:
+        """Claim `req`'s prompt pages; if they were all free, prefill it
+        into the first free lane.  Returns whether it was admitted."""
+        need = self._pages_for(len(req.prompt) - 1)
+        st = self.state
+        with self._log.span("claim"):
             (trees, mag_pages, mag_depth, shards, offs, admitted,
              _, fp_h, fp_s, mag_sp) = admit_pages(
                 self.ecfg, st.trees, st.mag_pages, st.mag_depth, req.req_id, need
@@ -702,21 +727,21 @@ class JitServeEngine:
             _assign(st.trees, trees)
             _assign(st.mag_pages, mag_pages)
             _assign(st.mag_depth, mag_depth)
-            # admission syncs on `admitted` anyway
-            if self.ecfg.fastpath:
-                self.stats["admit_fastpath_hits"] += int(fp_h)
-                self.stats["admit_fastpath_spills"] += int(fp_s)
-            if self.ecfg.magazines:
-                self.stats["admit_magazine_spills"] += int(mag_sp)
-            if not bool(admitted):
-                self.stats["queued_full"] += 1
-                break  # pool full: natural admission control
-            self.waiting.pop(0)
-            self._insert(free.pop(0), req, shards, offs, need)
-            self.stats["admitted"] += 1
-        n_adm = self.stats["admitted"] - admitted0
-        if n_adm:
-            self._record_span("admit", t0, step0, admitted=n_adm)
+        # admission syncs on `admitted` anyway
+        if self.ecfg.fastpath:
+            hits, spills = self._read("fastpath", fp_h, fp_s)
+            self.stats["admit_fastpath_hits"] += int(hits)
+            self.stats["admit_fastpath_spills"] += int(spills)
+        if self.ecfg.magazines:
+            self.stats["admit_magazine_spills"] += int(self._read("magazine", mag_sp)[0])
+        if not bool(self._read("claim", admitted)[0]):
+            self.stats["queued_full"] += 1
+            return False
+        self._log.queued(req.req_id)
+        self.waiting.pop(0)
+        self._insert(free.pop(0), req, shards, offs, need)
+        self.stats["admitted"] += 1
+        return True
 
     def _insert(self, lane: int, req: Request, shards, offs, n_pages) -> None:
         S = len(req.prompt)
@@ -725,20 +750,23 @@ class JitServeEngine:
         if S > 1:
             toks = np.zeros((1, Spad), np.int64)
             toks[0, :S] = req.prompt
-            _, cache = serve_prefill(
-                arch, self.params,
-                {"tokens": torch.from_numpy(toks).to(self.device)},
-                max_len=Spad, dtype=ecfg.tdtype,
-            )
+            with self._log.span("prefill", device=True, tokens=S, padded=Spad), \
+                    self._log.layers():
+                _, cache = serve_prefill(
+                    arch, self.params,
+                    {"tokens": torch.from_numpy(toks).to(self.device)},
+                    max_len=Spad, dtype=ecfg.tdtype,
+                )
             cache_k, cache_v = cache["k"][:, 0], cache["v"][:, 0]
         else:
             kv_shape = (arch.n_layers, Spad, arch.n_kv_heads, arch.head_dim)
             cache_k = torch.zeros(kv_shape, dtype=ecfg.tdtype, device=self.device)
             cache_v = torch.zeros(kv_shape, dtype=ecfg.tdtype, device=self.device)
-        prefill_insert(
-            ecfg, self.state, lane, req.req_id, shards, offs, n_pages, S - 1,
-            cache_k, cache_v, int(req.prompt[S - 1]), req.max_new_tokens,
-        )
+        with self._log.span("insert"):
+            prefill_insert(
+                ecfg, self.state, lane, req.req_id, shards, offs, n_pages, S - 1,
+                cache_k, cache_v, int(req.prompt[S - 1]), req.max_new_tokens,
+            )
         self.running[req.req_id] = req
         self._lane_of[req.req_id] = lane
 
@@ -747,16 +775,16 @@ class JitServeEngine:
         """Run n decode iterations with no host sync.  With `fused=True`
         the whole chunk is one dispatch: on the card the replay of its
         captured CUDA graph (`_fused_chunk`)."""
-        t0, step0 = self._now(), self.stats["steps"]
-        if fused:
-            self.acc = om.merge(self.acc, self._fused_chunk(n))
-        else:
-            for _ in range(n):
-                self.acc = om.merge(
-                    self.acc, engine_step(self.ecfg, self.params, self.state)
-                )
-        self.stats["steps"] += n
-        self._record_span("decode", t0, step0, n=n, fused=int(fused))
+        with self._log.phase("decode") as ph:
+            if fused:
+                self.acc = om.merge(self.acc, self._fused_chunk(n))
+            else:
+                for _ in range(n):
+                    with self._log.span("step", n=1):
+                        m = engine_step(self.ecfg, self.params, self.state)
+                    self.acc = om.merge(self.acc, m)
+            self.stats["steps"] += n
+            ph.keep(n=n, fused=int(fused))
 
     def _fused_chunk(self, n: int) -> Metrics:
         """The metrics of one fused chunk of n steps: `engine_run` on the
@@ -765,11 +793,14 @@ class JitServeEngine:
         overwrites, so they are cloned.  The kernels' launch counters
         gain the graph's launches at every replay."""
         if self.device.type != "cuda":
-            return engine_run(self.ecfg, self.params, self.state, n)
+            with self._log.span("step", n=n):
+                return engine_run(self.ecfg, self.params, self.state, n)
         g = self._graphs.get(n)
         if g is None:
-            return self._capture(n)
-        g.graph.replay()
+            with self._log.span("capture", n=n):
+                return self._capture(n)
+        with self._log.span("replay", device=True, n=n):
+            g.graph.replay()
         kcounters.add(g.launches)
         return {k: v.clone() for k, v in g.metrics.items()}
 
@@ -811,34 +842,32 @@ class JitServeEngine:
     def _drain(self) -> List[int]:
         """Collect retired lanes (one host sync), clear them, and return
         the drained seq ids in retirement-step order."""
-        t0, step0 = self._now(), self.stats["steps"]
-        st = self.state
-        seq, act, n_out, out_toks, over, done = (
-            t.cpu().numpy() for t in (
-                st.seq_id, st.active, st.n_out, st.out_toks, st.overflowed,
-                st.done_step,
-            )
-        )
-        lanes = np.nonzero((seq >= 0) & ~act)[0]
-        lanes = sorted(lanes, key=lambda i: (int(done[i]), int(i)))
-        drained = []
-        for lane in lanes:
-            sid = int(seq[lane])
-            req = self.running.pop(sid)
-            self._lane_of.pop(sid)
-            req.out_tokens = [int(t) for t in out_toks[lane, : n_out[lane]]]
-            req.done = True
-            self.completed[sid] = req
-            self.done_steps[sid] = int(done[lane])
-            self.retired_order.append(sid)
-            if over[lane]:
-                self.stats["overflow_retired"] += 1
-            drained.append(sid)
-        if drained:
-            mask = np.zeros((self.ecfg.max_batch,), bool)
-            mask[list(lanes)] = True
-            clear_lanes(self.ecfg, self.state, torch.from_numpy(mask).to(self.device))
-            self._record_span("drain", t0, step0, drained=len(drained))
+        with self._log.phase("drain") as ph:
+            st = self.state
+            seq, act, n_out, out_toks, over, done = self._read(
+                "drain", st.seq_id, st.active, st.n_out, st.out_toks, st.overflowed,
+                st.done_step)
+            self._log.resolve()   # the read waited for every device span before it
+            lanes = np.nonzero((seq >= 0) & ~act)[0]
+            lanes = sorted(lanes, key=lambda i: (int(done[i]), int(i)))
+            drained = []
+            for lane in lanes:
+                sid = int(seq[lane])
+                req = self.running.pop(sid)
+                self._lane_of.pop(sid)
+                req.out_tokens = [int(t) for t in out_toks[lane, : n_out[lane]]]
+                req.done = True
+                self.completed[sid] = req
+                self.done_steps[sid] = int(done[lane])
+                self.retired_order.append(sid)
+                if over[lane]:
+                    self.stats["overflow_retired"] += 1
+                drained.append(sid)
+            if drained:
+                mask = np.zeros((self.ecfg.max_batch,), bool)
+                mask[list(lanes)] = True
+                clear_lanes(self.ecfg, self.state, torch.from_numpy(mask).to(self.device))
+                ph.keep(drained=len(drained))
         return drained
 
     # -- ServeEngine-compatible surface --------------------------------
@@ -850,7 +879,7 @@ class JitServeEngine:
         if not self.running:
             return 0
         self.decode_steps(1)
-        return int(self.state.active.sum())
+        return int(self._read("step", self.state.active.sum())[0])
 
     def run_to_completion(self, max_steps: int = 10_000, chunk: int = 1) -> None:
         steps = 0
@@ -892,8 +921,10 @@ class JitServeEngine:
     def snapshot(self) -> Dict[str, object]:
         """Drain the telemetry plane into the exporter's snapshot format
         (obs/trace_export.py): schema-checked metric totals, the event
-        ring's surviving window and the host-phase span log.  A
-        deliberate host sync: call it at run boundaries."""
+        ring's surviving window, the host-phase span log, and the host
+        reads by site (`host_reads`, a key the JAX engine's snapshot lacks
+        and that both packages' `validate_snapshot` pass).  A deliberate
+        host sync: call it at run boundaries."""
         ecfg = self.ecfg
         return {
             "obs_schema": SNAPSHOT_VERSION,
@@ -912,6 +943,7 @@ class JitServeEngine:
             "metrics": self.stat_totals(),
             "events": oring.drain(self.state.ring),
             "spans": list(self.spans),
+            "host_reads": dict(self.host_reads),
         }
 
     def device_free_pages(self) -> int:
